@@ -2,23 +2,36 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
   1. device  - the card, and its name and power limit from nvidia-smi;
-  2. build   - nvcc builds of every kernel source (sm_90a), seconds taken;
+  2. build   - nvcc builds of every kernel source (sm_90a), one nvcc per
+               source, all started together; seconds taken;
   3. kernels - each kernel against its plain PyTorch version on the card at
-               the full-width shapes of the serving path (grid 512, 32768
-               points, batch 8, bf16): K1 bitwise, K2 within one bf16 ulp
-               plus the fp32 sum-order slack of a cancelling dot
-               (corr_fused.sum_order_slack), out-of-range taps exactly 0;
-               kernel, plain and library times (CUDA events, median of 20
-               calls) and the bound;
+               the full-width shapes of its path: K1 and K2 at the serving
+               path's (grid 512, 32768 points, batch 8, bf16), K1 bitwise,
+               K2 within one bf16 ulp plus the fp32 sum-order slack of a
+               cancelling dot (corr_fused.sum_order_slack), out-of-range
+               taps exactly 0; K3-K6 at the SLIM train step's (grid 920 over
+               120 m, 65536 points, batch 1, 6 iterations): K4 bitwise, K3
+               and K5 within their fp32 sum-order bounds, K6 within its
+               approximation contract (knn_banded.contract_report); kernel,
+               plain and library times (CUDA events, median of 20 calls)
+               and the bound;
   4. path    - the serving path at full width with seeded random weights:
                fused_forward, then an encode and 12 chained fused_streaming
                steps, with every launch count reset just before and read
                just after; ms per step (host clock, each step awaited) and
                frames/s; launches confirmed by
                torch.profiler; final flow and box probs against the same run
-               through the plain versions.
+               through the plain versions;
+  5. train   - the SLIM train step (SlimTrainer.train_step, slim_liso flags,
+               bf16 compute) at the train shapes above with seeded weights
+               and the JAX train benchmark's clouds: 2 warm-up steps, then
+               8 timed steps (host clock, each awaited) with every launch
+               count reset just before and read just after; one profiled
+               step (device time by kernel family); one step from the same
+               state through the plain versions, compared on loss and
+               gradient norm.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, exits non-zero and
 prints no result. Details go to chiprun_out/chip_smoke.json.
@@ -36,8 +49,17 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 GRID, N_PTS, BATCH, ITERS, STEPS = 512, 32768, 8, 6, 12
+# the SLIM train step of benchmarks/slim_920_bench.py
+T_GRID, T_RANGE, T_PTS, T_ITERS, T_WARMUP, T_STEPS = 920, 120.0, 65536, 6, 2, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16
+FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+# Kernel step against plain step, same state, bf16 compute: K5 sums df1 by
+# atomics in no fixed order and K2 rounds a few corr taps to the other bf16
+# neighbour, so the losses (before the backward) agree to the forward's
+# bf16 noise and the gradient norms to the backward's.
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GRAD_NORM_RTOL = 2e-2
 # End-to-end tolerance of the kernel path against the plain path, both on
 # the card in bf16. K1 is bitwise, so the images, encoder features and the
 # whole detector agree exactly; K2 differs from its plain version by at most
@@ -102,6 +124,13 @@ def clouds(seed, n_frames):
     return pts, torch.ones(BATCH, N_PTS, dtype=torch.bool, device="cuda")
 
 
+def bound(nbytes, nops, rate):
+    """(bound ms, what bounds it): bytes over the memory rate or operations
+    over `rate`, whichever takes longer."""
+    tb, to = nbytes / HBM_BYTES_PER_S, nops / rate
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
 def phase_kernels():
     import torch
 
@@ -135,7 +164,7 @@ def phase_kernels():
     k1_bytes = (in_grid * 128 * 2 + cells.numel() * 4 + got_g.numel() * 2
                 + got_o.numel() * 4)
     k1_ops = feats.numel()  # one max per point channel
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / BF16_FLOP_PER_S) * 1e3
+    k1_bound, k1_by = bound(k1_bytes, k1_ops, BF16_FLOP_PER_S)
     results.append({
         "name": "grid_scatter_max_occ",
         "route": "cuda",
@@ -147,7 +176,7 @@ def phase_kernels():
             lambda: grid_scatter.grid_scatter_max_occ(feats, cells, nc, plain=True)
         ),
         "bound_ms": k1_bound,
-        "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / BF16_FLOP_PER_S else "operations",
+        "bound_by": k1_by,
         "library_ms": cuda_ms(
             lambda: lib_out.scatter_reduce_(1, idx, feats, "amax", include_self=False)
         ),
@@ -190,6 +219,7 @@ def phase_kernels():
     k2_bytes = (f0.numel() * 2 + f1cat.numel() * 2 + coords.numel() * 4
                 + got.numel() * 4)
     k2_ops = int(in_range.sum()) * 2 * 128
+    k2_bound, k2_by = bound(k2_bytes, k2_ops, BF16_FLOP_PER_S)
     results.append({
         "name": "corr_window_fwd",
         "route": "cuda",
@@ -200,8 +230,8 @@ def phase_kernels():
         "plain_ms": cuda_ms(
             lambda: corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3, plain=True)
         ),
-        "bound_ms": max(k2_bytes / HBM_BYTES_PER_S, k2_ops / BF16_FLOP_PER_S) * 1e3,
-        "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / BF16_FLOP_PER_S else "operations",
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
         "library_ms": None,
         "bytes": k2_bytes,
         "flop": k2_ops,
@@ -215,6 +245,337 @@ def phase_kernels():
                  f"bf16 -> taps {list(got.shape)} f32",
     })
     return results
+
+
+def bench_clouds(trainer):
+    """The JAX train benchmark's clouds (benchmarks/slim_920_bench.py:58-74):
+    numpy RandomState(0), two frames of 65536 points uniform in a cube of
+    +-58 m, all valid, identity odometry."""
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.data.sample import FlowSample, PointCloud
+
+    rng = np.random.RandomState(0)
+    half = 0.5 * T_RANGE - 2.0
+    pcs = [PointCloud(
+        torch.from_numpy(rng.uniform(-half, half, (1, T_PTS, 4)).astype(np.float32)).cuda(),
+        torch.ones(1, T_PTS, dtype=torch.bool, device="cuda")) for _ in range(2)]
+    eye = torch.eye(4, device="cuda")[None]
+    return FlowSample(pcs[0], pcs[1], eye, eye)
+
+
+def phase_train_kernels(trainer, batch):
+    """K3-K6 at the SLIM train step's shapes."""
+    import torch
+
+    from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
+    from liso_tpu_torch.models.raft import coarse_size
+    from liso_tpu_torch.ops import corr_fused, grid_scatter, knn_banded
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    results = []
+    sorted_batch, _ = trainer._sort_batch(batch)
+    p0, p1 = sorted_batch.pcl_t0, sorted_batch.pcl_t1
+
+    # K4: the scatter-max VJP's gather, grid [1, 846400, 64] bf16 at the
+    # cell ids of frame 0 (drop bucket for the points outside a pillar)
+    nc = trainer.bev.num_cells
+    cells = prepare_pillar_inputs(p0.pcl, p0.valid, trainer.bev).cell
+    grid = torch.randn(1, nc, 64, generator=g, device="cuda").to(torch.bfloat16)
+    got = grid_scatter.grid_gather(grid, cells)
+    want = grid_scatter.grid_gather(grid, cells, plain=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("K4 grid_gather differs from its plain version")
+    in_grid = int((cells < nc).sum())
+    idx = cells.long().clamp(max=nc - 1)[..., None].expand(-1, -1, 64)
+    nbytes = cells.numel() * 4 + in_grid * 64 * 2 + got.numel() * 2
+    bms, bby = bound(nbytes, 0, FP32_FLOP_PER_S)
+    results.append({
+        "name": "grid_gather", "route": "cuda",
+        "source": "liso_tpu_torch/kernels/grid_gather.cu",
+        "replaces": "liso_tpu/ops/grid_scatter_pallas.py:210",
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": cuda_ms(lambda: grid_scatter.grid_gather(grid, cells)),
+        "plain_ms": cuda_ms(lambda: grid_scatter.grid_gather(grid, cells, plain=True)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(lambda: torch.gather(grid, 1, idx)),
+        "library_call": "torch.gather (no drop-bucket mask)",
+        "bytes": nbytes, "points_in_grid": in_grid,
+        "shape": f"grid [1, {nc}, 64] bf16 at cells [1, {T_PTS}] -> [1, {T_PTS}, 64]",
+    })
+    del grid, got, want, idx
+
+    # K3: the threshold histogram, 6 iterations x (fw + bw) points, 100000
+    # bins padded to 100352, bins sorted per row
+    rows, n, nb = T_ITERS, 2 * T_PTS, -(-100_000 // 2048) * 2048
+    dyn = torch.rand(rows, n, generator=g, device="cuda")
+    bins = torch.sort((dyn * 100_000).int().clamp(0, 99_999), dim=-1).values
+    vals = torch.randn(rows, n, generator=g, device="cuda")
+    got = grid_scatter.grid_reduce_add_c1(vals, bins, nb)
+    want = grid_scatter.grid_reduce_add_c1(vals, bins, nb, plain=True)
+    absum = grid_scatter.grid_reduce_add_c1(vals.abs(), bins, nb, plain=True)
+    cnt = grid_scatter.grid_reduce_add_c1(torch.ones_like(vals), bins, nb, plain=True)
+    torch.cuda.synchronize()
+    tol = 2 * cnt * 2.0**-24 * absum
+    if not bool(((got - want).abs() <= tol).all()):
+        fail("K3 grid_reduce_add_c1 differs from its plain version beyond the "
+             "fp32 sum-order bound")
+    flat = (bins.long() + torch.arange(rows, device="cuda")[:, None] * (nb + 1)).reshape(-1)
+    lib_out = torch.zeros(rows * (nb + 1), device="cuda")
+    nbytes = vals.numel() * 4 + bins.numel() * 4 + got.numel() * 4
+    bms, bby = bound(nbytes, vals.numel(), FP32_FLOP_PER_S)
+    results.append({
+        "name": "grid_reduce_add_c1", "route": "cuda",
+        "source": "liso_tpu_torch/kernels/grid_reduce_add_c1.cu",
+        "replaces": "liso_tpu/ops/grid_scatter_pallas.py:176",
+        "max_abs_err": float((got - want).abs().max()),
+        "max_err_over_bound": float(((got - want).abs() / tol.clamp(min=1e-30)).max()),
+        "ms": cuda_ms(lambda: grid_scatter.grid_reduce_add_c1(vals, bins, nb)),
+        "plain_ms": cuda_ms(lambda: grid_scatter.grid_reduce_add_c1(vals, bins, nb, plain=True)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, flat, vals.reshape(-1))),
+        "library_call": "index_add_",
+        "bytes": nbytes,
+        "shape": f"vals [{rows}, {n}] fp32, bins sorted -> [{rows}, {nb}] fp32",
+    })
+    del dyn, bins, vals, got, want, absum, cnt, flat, lib_out
+
+    # K5: one corr backward of the 115 x 115 coarse grid, C = 128, 4 levels,
+    # f0 in bf16 as the bf16 train step saves it
+    hc = coarse_size(T_GRID)  # 115
+    f0 = torch.randn(1, hc * hc, 128, generator=g, device="cuda").to(
+        torch.bfloat16)
+    f1cat, lv = corr_fused.pool_f1_levels(
+        torch.randn(1, hc, hc, 128, generator=g, device="cuda"), 4)
+    ii, jj = torch.meshgrid(torch.arange(hc, device="cuda"),
+                            torch.arange(hc, device="cuda"), indexing="ij")
+    coords = torch.stack([ii, jj]).float().reshape(1, 2, hc * hc)
+    coords = coords + 2 * torch.randn(1, 2, hc * hc, generator=g, device="cuda")
+    coords[:, :, :64] = -1e4  # far out of range: no cotangent
+    gt = torch.randn(1, len(lv.shapes) * 64, hc * hc, generator=g, device="cuda")
+    args = (f0, f1cat, coords, gt, lv, 3)
+    got = corr_fused.corr_window_bwd(*args)
+    want = corr_fused.corr_window_bwd(*args, plain=True)
+    slack = corr_fused.bwd_sum_order_slack(*args)
+    torch.cuda.synchronize()
+    ratio = 0.0
+    for x, y, sl in zip(got, want, slack):
+        if not bool(((x - y).abs() <= sl + 1e-30).all()):
+            fail("K5 corr_window_bwd differs from its plain version beyond the "
+                 "fp32 sum-order slack")
+        ratio = max(ratio, float(((x - y).abs() / sl.clamp(min=1e-30)).max()))
+    in_range = sum(int(corr_fused._window_cells(coords, lv, 3, lvl)[1].sum())
+                   for lvl in range(len(lv.shapes)))
+    nbytes = (f0.numel() * 2 + f1cat.numel() * 2 + coords.numel() * 4
+              + gt.numel() * 4 + got[0].numel() * 4 + got[1].numel() * 4)
+    # bf16 x bf16 products summed in fp32: the card's bf16 rate bounds them,
+    # whatever units the kernel uses
+    bms, bby = bound(nbytes, in_range * 128 * 4, BF16_FLOP_PER_S)
+    results.append({
+        "name": "corr_window_bwd", "route": "cuda",
+        "source": "liso_tpu_torch/kernels/corr_window_bwd.cu",
+        "replaces": "liso_tpu/ops/corr_fused_pallas.py:192",
+        "max_abs_err": max(float((x - y).abs().max()) for x, y in zip(got, want)),
+        "max_err_over_slack": ratio,
+        "ms": cuda_ms(lambda: corr_fused.corr_window_bwd(*args)),
+        "plain_ms": cuda_ms(lambda: corr_fused.corr_window_bwd(*args, plain=True)),
+        "bound_ms": bms, "bound_by": bby, "library_ms": None,
+        "bytes": nbytes, "flop": in_range * 128 * 4, "in_range_taps": in_range,
+        "shape": f"g {list(gt.shape)} fp32, f0 {list(f0.shape)}, f1cat "
+                 f"{list(f1cat.shape)} -> df0, df1 fp32",
+    })
+    del f0, f1cat, gt, got, want, slack
+
+    # K6: one direction's batched 1-NN, 6 iterations x 3 flow types of
+    # frame 0 warped by a small random flow, against frame 1
+    flows = 0.3 * torch.randn(18, T_PTS, 3, generator=g, device="cuda")
+    q = (p0.pcl[0, :, :3][None] + flows).reshape(1, 18 * T_PTS, 3)
+    qv = p0.valid.repeat(1, 18)
+    refs, rv = p1.pcl[..., :3].contiguous(), p1.valid
+    d, ix = knn_banded.nn_1_sorted(q, refs, qv, rv)
+    dp, ip = knn_banded.nn_1_sorted(q, refs, qv, rv, plain=True)
+    rep = knn_banded.contract_report(q, refs, qv, rv, 8.0, d, ix, dp, ip)
+    if rep["below_exact"] or rep["in_band_mismatch"]:
+        fail(f"K6 knn_banded breaks its approximation contract: {rep}")
+    qpen = torch.where(qv, 0.0, knn_banded.BIG)
+    rpen = torch.where(rv, 0.0, knn_banded.BIG)
+    ranges = knn_banded.band_ranges(q, qpen, refs, rpen, 8.0)
+    tile_pairs = int((ranges[..., 1] - ranges[..., 0]).sum()) * 1024 * 512
+    # the work this run's data needs: the valid (query, ref) pairs within
+    # the 8 m x-band, 3 FMAs (6 flop) each for the distance; the kernel
+    # visits whole tiles (tile_pairs)
+    rx = torch.sort(refs[0, rv[0], 0]).values
+    qx = q[0, qv[0], 0]
+    pairs = int((torch.searchsorted(rx, qx + 8.0, right=True)
+                 - torch.searchsorted(rx, qx - 8.0)).sum())
+    nbytes = q.numel() * 4 + refs.numel() * 4 + qv.numel() + rv.numel() + d.numel() * 8
+    bms, bby = bound(nbytes, pairs * 6, FP32_FLOP_PER_S)
+    step = 16384
+
+    def cdist_argmin():
+        for s in range(0, q.shape[1], step):
+            torch.cdist(q[:, s:s + step], refs).argmin(-1)
+
+    results.append({
+        "name": "knn_banded", "route": "cuda",
+        "source": "liso_tpu_torch/kernels/knn_banded.cu",
+        "replaces": "liso_tpu/ops/knn_pallas.py:33",
+        "max_abs_err": float((d - dp).abs()[qv].max()),
+        "contract": rep,
+        "ms": cuda_ms(lambda: knn_banded.nn_1_sorted(q, refs, qv, rv)),
+        "plain_ms": cuda_ms(lambda: knn_banded.nn_1_sorted(q, refs, qv, rv, plain=True)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(cdist_argmin, reps=5, warmup=1),
+        "library_call": f"torch.cdist + argmin, fp32, over {step}-query chunks "
+                        "(the whole distance matrix would take 309 GB), median of 5",
+        "bytes": nbytes, "flop": pairs * 6, "band_pairs": pairs,
+        "tile_band_pairs": tile_pairs,
+        "tile_band_bound_ms": bound(nbytes, tile_pairs * 6, FP32_FLOP_PER_S)[0],
+        "shape": f"q [1, {18 * T_PTS}, 3], refs [1, {T_PTS}, 3] fp32 -> d, idx",
+    })
+    return results
+
+
+def snapshot(trainer):
+    import copy
+
+    return (copy.deepcopy(trainer.model.state_dict()),
+            {k: v.clone() for k, v in trainer.nu.items()}, trainer.step,
+            trainer.movavg)
+
+
+def restore(trainer, snap):
+    import torch
+
+    state, nu, step, movavg = snap
+    trainer.model.load_state_dict(state)
+    with torch.no_grad():
+        for k, v in nu.items():
+            trainer.nu[k].copy_(v)
+    trainer.step, trainer.movavg = step, movavg
+
+
+FAMILIES = (
+    ("K5 corr_window_bwd", ("corr_window_bwd",)),
+    ("K2 corr_window_fwd", ("corr_window_fwd",)),
+    ("K6 knn_banded", ("knn_banded",)),
+    ("K1 grid_scatter_max_occ", ("grid_scatter_max",)),
+    ("K4 grid_gather", ("grid_gather",)),
+    ("K3 grid_reduce_add_c1", ("grid_reduce_add_c1",)),
+    ("NCHW <-> NHWC layout transforms (cuDNN)", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolutions (cuDNN)", ("implicit_gemm", "implicit_convolve", "fprop",
+                              "dgrad", "wgrad", "conv", "cudnn")),
+    ("matmul (cuBLAS, CUTLASS)", ("gemm", "Kernel2", "cublas")),
+    ("GroupNorm / BatchNorm", ("Norm", "norm", "RowwiseMoments",
+                               "ComputeInternalGradients",
+                               "ComputeFusedParams")),
+    ("sort, scan, searchsorted", ("sort", "scan", "search", "Radix", "radix")),
+    ("reductions", ("reduce",)),
+    ("cat", ("Cat", "cat")),
+    ("index, gather, scatter (torch)", ("index", "gather", "scatter")),
+    ("device-side asserts", ("assert",)),
+    ("elementwise and copies", ("elementwise", "vectorized", "unrolled",
+                                "copy", "fill", "Memcpy", "Memset")),
+)
+
+
+def families(rows):
+    """Device ms by kernel family from profile rows (us, count, key)."""
+    out = {}
+    for us, _, key in rows:
+        name = next((f for f, keys in FAMILIES if any(k in key for k in keys)),
+                    "other")
+        out[name] = out.get(name, 0.0) + us / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def phase_train(kernels):
+    """The SLIM train step at the JAX train benchmark's point."""
+    import torch
+
+    from liso_tpu_torch.ops.bev import BevSetup
+    from liso_tpu_torch.train.slim_train import SlimTrainer
+
+    bev = BevSetup((T_RANGE, T_RANGE), (T_GRID, T_GRID))
+    trainer = SlimTrainer(
+        bev, num_iters=T_ITERS, predict_weight_for_static_aggregation="sigmoid",
+        use_static_aggr_flow_for_aggr_flow=True, compute_dtype=torch.bfloat16,
+        seed=0, device="cuda",
+    )
+    batch = bench_clouds(trainer)
+    z_ok = int((batch.pcl_t0.pcl[..., 2].abs() < 5.0).sum())
+    kres = phase_train_kernels(trainer, batch)
+    for _ in range(T_WARMUP):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_ms, losses = [], []
+    for _ in range(T_STEPS):
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = dict(kernels.launches)
+    per_step = {"grid_scatter_max_occ": 2, "corr_window_fwd": 2 * T_ITERS,
+                "grid_gather": 4, "grid_reduce_add_c1": 1,
+                "corr_window_bwd": 2 * T_ITERS, "knn_banded": 2}
+    expect = {k: per_step.get(k, 0) * T_STEPS for k in launches}
+    if launches != expect:
+        fail(f"train step launches {launches}, expected {expect}")
+    for k in ("grid_reduce_add_c1", "grid_gather", "corr_window_bwd", "knn_banded"):
+        if launches[k] == 0:
+            fail(f"the train step did not launch {k}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        fail(f"train losses not finite: {losses}")
+    if not all(bool(torch.isfinite(p).all()) for p in trainer.params.values()):
+        fail("parameters not finite after the train steps")
+
+    snap = snapshot(trainer)
+    # two profiled steps, each in its own profiler session: one call's
+    # profile once reported every kernel at half its duration, and a second
+    # sample shows such a session up
+    profiled = [profile_window(lambda: trainer.train_step(batch))
+                for _ in range(2)]
+    counts, dev_ms, rows, host_rows = profiled[0]
+    restore(trainer, snap)
+    mk = trainer.train_step(batch)
+    restore(trainer, snap)
+    kernels.reset_launches()
+    mp = trainer.train_step(batch, plain=True)
+    torch.cuda.synchronize()
+    if any(kernels.launches.values()):
+        fail(f"the plain step launched kernels: {dict(kernels.launches)}")
+    cmp = {k: (float(mk[k]), float(mp[k])) for k in ("loss", "grad_norm")}
+    for k, rtol in (("loss", TRAIN_LOSS_RTOL), ("grad_norm", TRAIN_GRAD_NORM_RTOL)):
+        a, b = cmp[k]
+        if not (a == a and b == b) or abs(a - b) > rtol * abs(b):
+            fail(f"train step {k}: kernel path {a} vs plain path {b} (rtol {rtol})")
+    res = {
+        "phase": "train",
+        "grid": T_GRID, "range_m": T_RANGE, "points": T_PTS, "batch": 1,
+        "iters": T_ITERS, "dtype": "bf16", "flags": "slim_liso",
+        "points_in_pillar_z_window": z_ok,
+        "warmup_steps": T_WARMUP, "steps": T_STEPS,
+        "step_ms_mean": statistics.mean(step_ms),
+        "step_ms_median": statistics.median(step_ms),
+        "step_ms_max": max(step_ms),
+        "steps_per_s": 1e3 / statistics.mean(step_ms),
+        "losses": losses,
+        "launches": launches,
+        "peak_memory_gb": peak_gb,
+        "profiled_step": {"launches": counts, "device_ms": dev_ms,
+                          "device_ms_second_session": profiled[1][1],
+                          "device_ms_by_family": families(rows)},
+        "kernel_vs_plain": cmp,
+        "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                      "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL},
+    }
+    return kres, res, (rows, host_rows)
 
 
 def run_path(serve, slim, det, frames, valid, plain=False):
@@ -250,7 +611,8 @@ def run_path(serve, slim, det, frames, valid, plain=False):
 def profile_window(fn):
     """Run `fn` once under torch.profiler. Returns the launches of each
     kernel seen by the profiler, the device time (sum over device kernels,
-    ms) and the device time by kernel name."""
+    ms), the device time by kernel name and the host time by operator
+    (self CPU us, with the profiler's own cost in it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -258,10 +620,14 @@ def profile_window(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    counts = {"grid_scatter_max_occ": 0, "corr_window_fwd": 0}
+    from liso_tpu_torch import kernels
+
+    counts = {k: 0 for k in kernels.launches}
     device_us = 0.0
-    rows = []
+    rows, host_rows = [], []
     for ev in prof.key_averages():
+        if ev.self_cpu_time_total > 0:
+            host_rows.append((ev.self_cpu_time_total, ev.count, ev.key))
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
@@ -272,7 +638,8 @@ def profile_window(fn):
             if f"{k}_kernel" in ev.key:
                 counts[k] += ev.count
     rows.sort(reverse=True)
-    return counts, device_us / 1e3, rows
+    host_rows.sort(reverse=True)
+    return counts, device_us / 1e3, rows, host_rows
 
 
 def main() -> int:
@@ -325,6 +692,7 @@ def main() -> int:
     res = run_path(serve, slim, det, frames, valid)
     launches = dict(kernels.launches)
     expect = {
+        **{k: 0 for k in launches},
         # fused_forward: 2 SLIM frames + 1 detector frame; encode: 1;
         # each streaming step: 1 fused scatter. K2: 6 per flow pass.
         "grid_scatter_max_occ": 3 + 1 + STEPS,
@@ -350,11 +718,14 @@ def main() -> int:
         "fused_streaming": profile_window(lambda: serve.fused_streaming(
             slim, det, fmap, cn, frames[1], valid)),
     }
+    zero = {k: 0 for k in kernels.launches}
     prof_expect = {
-        "fused_forward": {"grid_scatter_max_occ": 3, "corr_window_fwd": ITERS},
-        "fused_streaming": {"grid_scatter_max_occ": 1, "corr_window_fwd": ITERS},
+        "fused_forward": {**zero, "grid_scatter_max_occ": 3,
+                          "corr_window_fwd": ITERS},
+        "fused_streaming": {**zero, "grid_scatter_max_occ": 1,
+                            "corr_window_fwd": ITERS},
     }
-    for name, (counts, _, _) in profiles.items():
+    for name, (counts, _, _, _) in profiles.items():
         if counts != prof_expect[name]:
             fail(f"profiler saw launches {counts} in {name}, expected "
                  f"{prof_expect[name]}")
@@ -367,7 +738,7 @@ def main() -> int:
         name: {"launches": counts, "device_ms": dev_ms,
                "host_ms_unprofiled": host_ms[name],
                "device_busy_share": dev_ms / host_ms[name]}
-        for name, (counts, dev_ms, _) in profiles.items()
+        for name, (counts, dev_ms, _, _) in profiles.items()
     }
 
     ref = run_path(serve, slim, det, frames, valid, plain=True)
@@ -397,19 +768,38 @@ def main() -> int:
     if max(diffs["fused_forward_probs"], diffs["streaming_probs"]) > PROBS_ATOL:
         fail(f"box probs of the kernel path vs the plain path: {diffs}")
 
+    del slim, det, frames, ref
+    torch.cuda.empty_cache()
+    tkres, train, (train_rows, train_host_rows) = phase_train(kernels)
+    emit(train)
+    for r in tkres:
+        emit({"phase": "kernel", **r})
+    kres += tkres
     for r in kres:
-        r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {"serve": launches[r["name"]],
+                                 "train": train["launches"][r["name"]]}
+        r["launches"] = launches[r["name"]] + train["launches"][r["name"]]
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump({"device": device, "nvidia_smi": smi, "kernels": kres,
-                   "path": path, "ptxas": ptxas,
+                   "path": path, "train": train, "ptxas": ptxas,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     with open(OUT_DIR / "chip_smoke_profile.txt", "w") as f:
-        for name, (_, dev_ms, rows) in profiles.items():
+        for name, (_, dev_ms, rows, _) in profiles.items():
             f.write(f"# {smi}; one {name} call: device {dev_ms:.3f} ms, "
                     f"host {host_ms[name]:.3f} ms (profiler off)\n")
             f.write("# device_us count kernel\n")
             for us, count, key in rows:
                 f.write(f"{us:.1f}\t{count}\t{key}\n")
+        f.write(f"# {smi}; one SLIM train step: device "
+                f"{train['profiled_step']['device_ms']:.3f} ms, host "
+                f"{train['step_ms_median']:.3f} ms (median, profiler off)\n")
+        f.write("# device_us count kernel\n")
+        for us, count, key in train_rows:
+            f.write(f"{us:.1f}\t{count}\t{key}\n")
+        f.write("# the same step on the host: self_cpu_us count operator "
+                "(profiler on)\n")
+        for us, count, key in train_host_rows[:40]:
+            f.write(f"{us:.1f}\t{count}\t{key}\n")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: r[k] for k in keys} for r in kres]})

@@ -48,11 +48,32 @@ SOURCES = {
         # f0, f1cat, coords, out, B, HW, C, M, L, level_meta, scale, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_float, _P],
     ),
+    "grid_gather": (
+        "grid_gather",
+        # grid, cells, out, B, N, C, num_cells, is_bf16, stream
+        [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "grid_reduce_add_c1": (
+        "grid_reduce_add_c1",
+        # vals, starts, out, rows, N, num_bins, stream
+        [_P, _P, _P, _I, _I, _I, _P],
+    ),
+    "corr_window_bwd": (
+        "corr_window_bwd",
+        # f0, f1cat, coords, g, df0, df1, B, HW, C, M, L, level_meta, scale,
+        # stream
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_float, _P],
+    ),
+    "knn_banded": (
+        "knn_banded",
+        # q, refs, ranges, dist, index, B, Nq, Nr_pad, stream
+        [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    ),
 }
 
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that its path went through it.
-launches = {"grid_scatter_max_occ": 0, "corr_window_fwd": 0}
+launches = {fn_name: 0 for fn_name, _ in SOURCES.values()}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

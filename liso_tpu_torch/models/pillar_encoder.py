@@ -1,5 +1,4 @@
-"""PointPillars feature encoder (port of liso_tpu/models/pillar_encoder.py,
-inference only).
+"""PointPillars feature encoder (port of liso_tpu/models/pillar_encoder.py).
 
 Feature layout matches mmdet3d PillarFeatureNet (with_distance=False):
   [x, y, z, intensity..., x-xm, y-ym, z-zm, x-xc, y-yc]
@@ -16,7 +15,7 @@ from torch import nn
 
 from liso_tpu_torch.models.layers import BatchNorm
 from liso_tpu_torch.ops import scatter
-from liso_tpu_torch.ops.bev import BevSetup
+from liso_tpu_torch.ops.bev import BevSetup, point_cell_ids
 from liso_tpu_torch.ops.grid_scatter import grid_scatter_max_occ
 from liso_tpu_torch.ops.pillars import pillarize
 
@@ -33,11 +32,31 @@ class PreparedPillars(NamedTuple):
 
 
 class MaskedBatchNorm(BatchNorm):
-    """Inference form of liso_tpu's MaskedBatchNorm (BatchNorm over the
-    valid points' channels, eps 1e-3), in fp32."""
+    """liso_tpu's MaskedBatchNorm over the channels of [..., C] point
+    features, in fp32, eps 1e-3. In train mode (`self.training`) the
+    statistics are taken over the points where `mask` is set, with the
+    biased variance, and the running statistics move with flax's momentum
+    0.99 (torch's 0.01): running = 0.99 running + 0.01 batch. In eval mode
+    the running statistics normalise."""
+
+    MOMENTUM = 0.99
 
     def __init__(self, c: int, eps: float = 1e-3, device=None):
         super().__init__(c, eps=eps, channel_dim=-1, device=device)
+
+    def forward(self, x, mask=None):
+        if not self.training:
+            return super().forward(x)
+        x = x.float()
+        dims = tuple(range(x.dim() - 1))
+        m = mask[..., None].to(x.dtype)
+        cnt = m.sum().clamp(min=1.0)
+        mean = (x * m).sum(dims) / cnt
+        var = ((x - mean) ** 2 * m).sum(dims) / cnt
+        with torch.no_grad():
+            self.running_mean.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * mean)
+            self.running_var.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * var)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 def prepare_pillar_inputs(
@@ -112,7 +131,7 @@ class PillarEncoder(nn.Module):
         else:
             self._check_prepared(prepared)
         x = self.pfn_linear(prepared.feats)
-        x = self.pfn_bn(x)
+        x = self.pfn_bn(x, prepared.in_pillar)
         return torch.relu(x), prepared
 
     def forward(self, points, valid, prepared=None, plain: bool = False):
@@ -125,6 +144,13 @@ class PillarEncoder(nn.Module):
         )
         b = x.shape[0]
         return g.reshape(b, h, w, self.num_channels), occ.reshape(b, h, w, 1)
+
+
+def pillar_coords(points: torch.Tensor, valid: torch.Tensor, bev: BevSetup):
+    """[B, N, >=2] -> (int32 (row, col) [B, N, 2] per point, clamped in
+    range; in-range mask [B, N], False for invalid points)."""
+    _, in_range, rc = point_cell_ids(points[..., :2], bev, valid)
+    return rc, in_range
 
 
 def fused_scatter_images(xs, prepared: PreparedPillars, bev: BevSetup,

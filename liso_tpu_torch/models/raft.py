@@ -1,5 +1,5 @@
 """RAFT-small BEV scene-flow backbone (port of liso_tpu/models/raft.py, the
-joint-encoder inference path).
+joint-encoder path, inference and training).
 
 Modules run NCHW; the public `RAFT.encode` and `RAFT.flow_from_features`
 keep liso_tpu's channels-last layout at their boundary. The correlation
@@ -164,13 +164,16 @@ class ConvGRU(nn.Module):
 
 class SmallMotionEncoder(nn.Module):
     """Motion features from corr, flow and logits; the flow and logits
-    branches are fused into one 7x7 + one 3x3 conv (liso_tpu layout)."""
+    branches are fused into one 7x7 + one 3x3 conv (liso_tpu layout).
+    `flow_channels` is 3 when the static-aggregation weight logit rides
+    with the flow."""
 
-    def __init__(self, corr_channels, dtype=None, device=None):
+    def __init__(self, corr_channels, flow_channels=2, dtype=None,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.conv_stat_corr1 = Conv(corr_channels, 96, 1, **kw)
-        self.conv_flowcls1 = Conv(2 + 4, 128, 7, **kw)
+        self.conv_flowcls1 = Conv(flow_channels + 4, 128, 7, **kw)
         self.conv_flowcls2 = Conv(128, 64, 3, **kw)
         self.conv = Conv(96 + 64, 80, 3, **kw)
 
@@ -185,24 +188,34 @@ class SmallMotionEncoder(nn.Module):
 class SmallUpdateBlock(nn.Module):
     """Motion encoder + GRU + the fused flow/classification heads: one
     3x3 hidden conv for both heads and one grouped (groups=2) output conv,
-    each group reading only its own head's hidden half."""
+    each group reading only its own head's hidden half. With
+    `predict_weight_for_static_aggregation` the weight logit `wlog` joins
+    the flow at the motion encoder's input and its delta is channel 2 of
+    the flow group."""
 
     def __init__(self, corr_channels, hidden_dim=96, context_dim=64,
-                 dtype=None, device=None):
+                 predict_weight_for_static_aggregation=False, dtype=None,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.motion_encoder = SmallMotionEncoder(corr_channels, **kw)
+        self.predict_weight = predict_weight_for_static_aggregation
+        self.motion_encoder = SmallMotionEncoder(
+            corr_channels, 3 if self.predict_weight else 2, **kw
+        )
         self.gru = ConvGRU(hidden_dim, context_dim + 144, **kw)
         self.heads_conv1 = Conv(hidden_dim, 256, 3, **kw)
         self.heads_conv2 = Conv(256, 8, 3, groups=2, **kw)
 
-    def forward(self, net, inp, corr, flow, logits):
-        """NCHW -> (net, delta_flow [B, 2, h, w], delta_logits [B, 4, h, w])."""
-        motion = self.motion_encoder(flow, corr, logits)
+    def forward(self, net, inp, corr, flow, logits, wlog=None):
+        """NCHW -> (net, delta_flow [B, 2, h, w], delta_logits [B, 4, h, w],
+        delta_wlog [B, 1, h, w] or None)."""
+        flow_in = torch.cat([flow, wlog], dim=1) if self.predict_weight else flow
+        motion = self.motion_encoder(flow_in, corr, logits)
         net = self.gru(net, torch.cat([inp, motion], dim=1))
         h = torch.relu(self.heads_conv1(net))
         delta = self.heads_conv2(h).float()
-        return net, delta[:, :2], delta[:, 4:8]
+        dw = delta[:, 2:3] if self.predict_weight else None
+        return net, delta[:, :2], delta[:, 4:8], dw
 
 
 # ---------------------------------------------------------------------------
@@ -240,14 +253,19 @@ def coarse_size(n: int, downsample: int = 8) -> int:
 
 class RAFT(nn.Module):
     """One direction's iterative flow predictor (joint encoder, logits
-    predicted, no static-aggregation weight). `flow_from_features` returns
-    stacked per-iteration outputs [iters, B, H, W, 8]: 4 logits ++ 2 static
-    flow ++ 2 dynamic flow, flows in meters, full BEV resolution."""
+    predicted). `flow_from_features` returns stacked per-iteration outputs
+    [iters, B, H, W, 8(+1)]: 4 logits ++ 2 static flow ++ 2 dynamic flow
+    (++ 1 static-aggregation weight logit with
+    `predict_weight_for_static_aggregation`), flows in meters, full BEV
+    resolution. Flow, logits and the weight logit are detached at the top
+    of every iteration (`liso_tpu/models/raft.py:627-629`)."""
 
     def __init__(self, grid_size, in_channels=64, num_iters=6, corr_levels=4,
                  corr_radius=3, hidden_dim=96, context_dim=64,
                  corr_feature_dim=128, downsample=8, resolution_m=0.2,
-                 fnet_norm="instance_affine", dtype=None, device=None):
+                 fnet_norm="instance_affine",
+                 predict_weight_for_static_aggregation=False, dtype=None,
+                 device=None):
         super().__init__()
         self.num_iters = num_iters
         self.corr_levels = corr_levels
@@ -263,8 +281,10 @@ class RAFT(nn.Module):
             in_channels, corr_feature_dim, hidden_dim + context_dim,
             fnet_norm, dtype=dtype, device=device,
         )
+        self.predict_weight = predict_weight_for_static_aggregation
         self.update_block = SmallUpdateBlock(
-            corr_channels, hidden_dim, context_dim, dtype=dtype, device=device
+            corr_channels, hidden_dim, context_dim,
+            predict_weight_for_static_aggregation, dtype=dtype, device=device
         )
 
     def encode(self, img: torch.Tensor):
@@ -298,20 +318,29 @@ class RAFT(nn.Module):
         )[None].expand(b, 2, h, w)
         flow = torch.zeros(b, 2, h, w, device=dev)
         logits = torch.zeros(b, 4, h, w, device=dev)
+        wlog = torch.zeros(b, 1, h, w, device=dev) if self.predict_weight else None
         m_per_px = self.resolution_m * self.downsample
         outputs = []
         for it in range(self.num_iters):
+            flow = flow.detach()
+            logits = logits.detach()
+            if wlog is not None:
+                wlog = wlog.detach()
             corr = corr_window_features(
                 f0_flat, f1cat, coords0 + flow, lvls, self.corr_radius, plain
             )
-            net, dflow, dlogits = self.update_block(net, inp, corr, flow, logits)
+            net, dflow, dlogits, dw = self.update_block(
+                net, inp, corr, flow, logits, wlog
+            )
             flow = flow + dflow
             logits = logits + dlogits
+            if wlog is not None:
+                wlog = wlog + dw
             if not upsample_all and it < self.num_iters - 1:
                 continue  # inference: only the final iteration is consumed
             up_flow = upsample_bilinear(flow, self.downsample) * m_per_px
-            up_logits = upsample_bilinear(logits, self.downsample)
-            outputs.append(
-                torch.cat([up_logits, up_flow, up_flow], dim=1).permute(0, 2, 3, 1)
-            )
+            outs = [upsample_bilinear(logits, self.downsample), up_flow, up_flow]
+            if wlog is not None:
+                outs.append(upsample_bilinear(wlog, self.downsample))
+            outputs.append(torch.cat(outs, dim=1).permute(0, 2, 3, 1))
         return torch.stack(outputs, dim=0)

@@ -1,25 +1,143 @@
-"""SLIM scene-flow model, inference path (port of the forward of
-liso_tpu/models/slim.py): pillar encoder + RAFT. The moving-average
-threshold state belongs to training and is not ported yet."""
+"""SLIM scene-flow model (port of liso_tpu/models/slim.py): pillar encoder +
+RAFT, and the moving-average dynamicness threshold of SLIM training.
+
+The threshold state is a NamedTuple of tensors, carried by the trainer and
+replaced (not mutated) by `movavg_update` / `movavg_update_batched`. Its
+histogram is the scalar scatter-add kernel K3 (ops/grid_scatter.py
+`grid_reduce_add_c1`) over bin-sorted values.
+"""
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import torch
 from torch import nn
 
 from liso_tpu_torch.models.pillar_encoder import PillarEncoder
 from liso_tpu_torch.models.raft import RAFT
 from liso_tpu_torch.ops.bev import BevSetup
+from liso_tpu_torch.ops.grid_scatter import grid_reduce_add_c1
 
 
+# ---------------------------------------------------------------------------
+# Moving-average dynamicness threshold
+# ---------------------------------------------------------------------------
+class MovAvgState(NamedTuple):
+    importance: torch.Tensor  # [resolution] fp32 EMA of the improvement hist
+    bias_counter: torch.Tensor  # scalar
+    update_weight: torch.Tensor  # scalar constant
+    start_value: torch.Tensor  # scalar
+
+
+def movavg_init(num_train_samples: int, num_moving: int = 621_013_971,
+                resolution: int = 100_000, start_value: float = 0.5,
+                device=None) -> MovAvgState:
+    """Update weight such that the buffer turns over roughly every 5k
+    iterations."""
+    avg_points_per_sample = num_moving / max(num_train_samples, 1)
+    update_weight = 1.0 / min(2.0 * num_moving, 5_000.0 * avg_points_per_sample)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    return MovAvgState(
+        importance=torch.zeros(resolution, dtype=torch.float32, device=device),
+        bias_counter=scalar(0.0),
+        update_weight=scalar(update_weight),
+        start_value=scalar(start_value),
+    )
+
+
+def movavg_value(state: MovAvgState) -> torch.Tensor:
+    """Optimal threshold = mean bin index minimising the cumulative
+    improvement, over the resolution; the start value until the first
+    update."""
+    res = state.importance.shape[0]
+    improv = torch.cat([state.importance.new_zeros(1),
+                        torch.cumsum(state.importance, 0)])
+    is_best = improv == improv.min()
+    idxs = torch.arange(res + 1, dtype=torch.float32, device=improv.device)
+    avg_idx = (idxs * is_best).sum() / is_best.sum().clamp(min=1)
+    return torch.where(state.bias_counter > 0.0, avg_idx / res,
+                       state.start_value)
+
+
+def _bins(dynamicness, valid, res):
+    bins = (dynamicness * res).to(torch.int32).clamp(0, res - 1)
+    return torch.where(valid, bins, res)
+
+
+def _fold(importance, bias, update_weight, count, hist):
+    """One EMA step: (1 - uw)^count via expm1/log1p, exact in fp32 where
+    uw ~ 1e-9 would vanish."""
+    one_minus_cur_w = -torch.expm1(count * torch.log1p(-update_weight))
+    cur_w = 1.0 - one_minus_cur_w
+    return (importance * cur_w + one_minus_cur_w * hist,
+            bias * cur_w + one_minus_cur_w)
+
+
+def movavg_update(state: MovAvgState, epes_stat, epes_dyn, dynamicness,
+                  valid, plain: bool = False) -> MovAvgState:
+    """One update from flat [M] inputs: improvements = epe_static -
+    epe_dynamic of the valid entries, summed into dynamicness bins, EMA'd
+    into the importance."""
+    res = state.importance.shape[0]
+    improvements = torch.where(valid, epes_stat - epes_dyn, 0.0)
+    hist = _histograms(improvements[None], _bins(dynamicness, valid, res)[None],
+                       res, plain)[0]
+    importance, bias = _fold(state.importance, state.bias_counter,
+                             state.update_weight, valid.sum().float(), hist)
+    return state._replace(importance=importance, bias_counter=bias)
+
+
+def _histograms(improvements, bins, res, plain=False):
+    """[I, M] values and bins (res = drop bucket) -> [I, res] per-row bin
+    sums: a stable sort of each row by bin, then one K3 launch over all
+    rows, with the bins padded to a multiple of 2048 and the drop bucket
+    sent to int32 max, as the TPU path does (`liso_tpu/models/slim.py:
+    171-183`)."""
+    res_pad = -(-res // 2048) * 2048
+    bins_s, order = torch.sort(bins, dim=-1, stable=True)
+    vals_s = torch.gather(improvements, -1, order)
+    bins_s = torch.where(bins_s >= res, torch.iinfo(torch.int32).max, bins_s)
+    return grid_reduce_add_c1(vals_s, bins_s, res_pad, plain)[:, :res]
+
+
+def movavg_update_batched(state: MovAvgState, epes_stat, epes_dyn,
+                          dynamicness, valid,
+                          plain: bool = False) -> MovAvgState:
+    """The sequence of `movavg_update` calls over the rows of [I, M] inputs
+    (one row per RAFT iteration) with ONE batched histogram pass; the EMA
+    folds row by row afterwards."""
+    res = state.importance.shape[0]
+    n_iter = epes_stat.shape[0]
+    improvements = torch.where(valid, epes_stat - epes_dyn, 0.0)
+    hists = _histograms(improvements, _bins(dynamicness, valid, res), res,
+                        plain)
+    importance, bias = state.importance, state.bias_counter
+    for i in range(n_iter):
+        importance, bias = _fold(importance, bias, state.update_weight,
+                                 valid[i].sum().float(), hists[i])
+    return state._replace(importance=importance, bias_counter=bias)
+
+
+# ---------------------------------------------------------------------------
 class SlimModel(nn.Module):
     """forward(pcl_t0, valid_t0, pcl_t1, valid_t1) returns (outputs_fw,
-    outputs_bw, occ_t0, occ_t1); outputs_* are [iters, B, H, W, 8] stacked
-    per-iteration network outputs (outputs_bw is None when backward=False).
-    Both directions share one RAFT. `plain=True` runs the plain PyTorch
+    outputs_bw, occ_t0, occ_t1); outputs_* are [iters, B, H, W, 8(+1)]
+    stacked per-iteration network outputs (outputs_bw is None when
+    backward=False; the ninth channel is the static-aggregation weight
+    logit when `predict_weight_for_static_aggregation` is set). Both
+    directions share one RAFT. In train mode (`self.train()`) the pillar
+    encoder's batch norm normalises with the batch's statistics and updates
+    its running ones, once per frame. `plain=True` runs the plain PyTorch
     versions of the kernels on the card."""
 
     def __init__(self, bev: BevSetup, num_iters: int = 6, corr_levels: int = 4,
                  corr_radius: int = 3, pillar_channels: int = 64,
-                 point_features: int = 4, compute_dtype=None, device=None):
+                 point_features: int = 4,
+                 predict_weight_for_static_aggregation=False,
+                 compute_dtype=None, device=None):
         super().__init__()
         self.bev = bev
         self.compute_dtype = compute_dtype
@@ -34,6 +152,9 @@ class SlimModel(nn.Module):
             corr_levels=corr_levels,
             corr_radius=corr_radius,
             resolution_m=bev.res_m[0],
+            predict_weight_for_static_aggregation=(
+                predict_weight_for_static_aggregation is not False
+            ),
             dtype=compute_dtype,
             device=device,
         )

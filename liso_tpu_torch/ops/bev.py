@@ -31,6 +31,20 @@ class BevSetup(NamedTuple):
         return self.grid_size[0] * self.grid_size[1]
 
 
+def voxel_center_coords(setup: BevSetup, device=None) -> torch.Tensor:
+    """[H, W, 2] fp32 metric (x, y) of every cell center, computed in float64
+    and rounded once, as the JAX package computes it with numpy."""
+    h, w = setup.grid_size
+    ii, jj = torch.meshgrid(
+        torch.arange(h, dtype=torch.float64), torch.arange(w, dtype=torch.float64),
+        indexing="ij",
+    )
+    ij = torch.stack([ii, jj], dim=-1) + 0.5
+    res = torch.tensor(setup.res_m, dtype=torch.float64)
+    emin = torch.tensor(setup.extent_min, dtype=torch.float64)
+    return (ij * res + emin).to(torch.float32).to(device)
+
+
 def point_cell_ids(
     pts_xy: torch.Tensor, setup: BevSetup, valid: torch.Tensor | None = None
 ):

@@ -1,12 +1,23 @@
-"""BEV scatter-max with occupancy over cell-sorted points (port of the max
-+ occupancy forward of liso_tpu/ops/grid_scatter_pallas.py,
-`grid_reduce_with_occ(feats, cells, num_cells, "max")`).
+"""Dense-BEV-grid scatter and gather over cell-sorted points (port of
+liso_tpu/ops/grid_scatter_pallas.py).
 
-`grid_scatter_max_occ` launches the CUDA kernel
-`kernels/grid_scatter_max.cu` for CUDA tensors and runs the plain PyTorch
-version, `grid_scatter_max_occ_plain`, for CPU tensors. On the card the
-plain version runs only when the caller passes `plain=True` (tests and
-chip_smoke.py compare the two).
+  * `grid_scatter_max_occ` - the max + occupancy forward of
+    `grid_reduce_with_occ(feats, cells, num_cells, "max")` (kernel K1,
+    `kernels/grid_scatter_max.cu`), differentiable with the TPU VJP
+    (`grid_scatter_pallas.py:459-470`):
+        winner = feats == gather(grid, cells)
+        dfeats = where(winner, gather(g, cells), 0)
+    so every tied maximum gets the full cotangent;
+  * `grid_gather` - per-point row gather, drop bucket reads 0 (kernel K4,
+    `kernels/grid_gather.cu`), the gather of that VJP;
+  * `grid_reduce_add_c1` - scatter-add of scalar values over sorted bins
+    (kernel K3, `kernels/grid_reduce_add_c1.cu`), the C == 1 add of
+    `grid_reduce`.
+
+Each launches its CUDA kernel for CUDA tensors and runs its plain PyTorch
+version (`*_plain`) for CPU tensors; on the card the plain version runs
+only when the caller passes `plain=True` (tests and chip_smoke.py compare
+the two).
 """
 from __future__ import annotations
 
@@ -14,6 +25,16 @@ import torch
 
 from liso_tpu_torch import kernels
 from liso_tpu_torch.ops.scatter import scatter_max_grid
+
+
+def _check_cuda(*tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"tensors on {[str(t.device) for t in tensors]}: all must lie on "
+            "one CUDA device"
+        )
+    return dev
 
 
 def grid_scatter_max_occ_plain(
@@ -32,20 +53,10 @@ def grid_scatter_max_occ_plain(
     return grid, occ
 
 
-def grid_scatter_max_occ(
-    feats: torch.Tensor, cells: torch.Tensor, num_cells: int,
-    plain: bool = False,
-):
-    """Scatter-max of cell-sorted point features into a dense grid, with
-    occupancy. Cell ids MUST be ascending per sample. Same contract as
-    `grid_scatter_max_occ_plain`."""
+def _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain):
     if plain or feats.device.type == "cpu":
         return grid_scatter_max_occ_plain(feats, cells, num_cells)
-    if feats.device.type != "cuda" or cells.device != feats.device:
-        raise ValueError(
-            f"feats on {feats.device}, cells on {cells.device}: both must lie "
-            "on one CUDA device"
-        )
+    _check_cuda(feats, cells)
     if feats.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"feats must be fp32 or bf16, got {feats.dtype}")
     if feats.dim() != 3 or cells.shape != feats.shape[:2]:
@@ -75,3 +86,116 @@ def grid_scatter_max_occ(
     )
     kernels.launches["grid_scatter_max_occ"] += 1
     return grid, occ
+
+
+class _GridScatterMaxOcc(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, cells, num_cells, plain):
+        grid, occ = _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain)
+        ctx.save_for_backward(feats, cells, grid)
+        ctx.plain = plain
+        ctx.mark_non_differentiable(occ)  # piecewise constant in feats
+        return grid, occ
+
+    @staticmethod
+    def backward(ctx, g_grid, g_occ):
+        feats, cells, grid = ctx.saved_tensors
+        if g_grid is None:
+            return None, None, None, None
+        winner = feats == grid_gather(grid, cells, ctx.plain)
+        g_pts = grid_gather(g_grid.contiguous(), cells, ctx.plain)
+        return torch.where(winner, g_pts, 0.0), None, None, None
+
+
+def grid_scatter_max_occ(
+    feats: torch.Tensor, cells: torch.Tensor, num_cells: int,
+    plain: bool = False,
+):
+    """Scatter-max of cell-sorted point features into a dense grid, with
+    occupancy. Cell ids MUST be ascending per sample. Same contract as
+    `grid_scatter_max_occ_plain`; differentiable in `feats` (TPU VJP, see
+    the module docstring)."""
+    return _GridScatterMaxOcc.apply(feats, cells, num_cells, plain)
+
+
+def grid_gather_plain(grid: torch.Tensor, cells: torch.Tensor):
+    """grid [B, NC, C], cells [B, N] -> [B, N, C]: row cells[b, p] of
+    grid[b]; ids >= NC (the drop bucket) read 0."""
+    nc, c = grid.shape[1], grid.shape[2]
+    idx = cells.long().clamp(0, nc - 1).unsqueeze(-1).expand(-1, -1, c)
+    vals = torch.gather(grid, 1, idx)
+    return torch.where((cells < nc).unsqueeze(-1), vals, 0.0)
+
+
+def grid_gather(grid: torch.Tensor, cells: torch.Tensor, plain: bool = False):
+    """Per-point row gather; same contract as `grid_gather_plain`. The
+    cells need not be sorted."""
+    if plain or grid.device.type == "cpu":
+        return grid_gather_plain(grid, cells)
+    _check_cuda(grid, cells)
+    if grid.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"grid must be fp32 or bf16, got {grid.dtype}")
+    if grid.dim() != 3 or cells.dim() != 2 or cells.shape[0] != grid.shape[0]:
+        raise ValueError(f"grid {tuple(grid.shape)}, cells {tuple(cells.shape)}")
+    b, nc, c = grid.shape
+    n = cells.shape[1]
+    if c % 4:
+        raise ValueError(f"the CUDA kernel takes C % 4 == 0, got C = {c}")
+    grid = grid.contiguous()
+    if grid.data_ptr() % (4 * grid.element_size()):
+        raise ValueError("grid must be aligned to 4 elements (vector loads)")
+    cells = cells.to(torch.int32).contiguous()
+    out = torch.empty(b, n, c, dtype=grid.dtype, device=grid.device)
+    fn = kernels.function("grid_gather")
+    kernels.check(
+        fn(
+            grid.data_ptr(), cells.data_ptr(), out.data_ptr(), b, n, c, nc,
+            int(grid.dtype == torch.bfloat16),
+            torch.cuda.current_stream(grid.device).cuda_stream,
+        ),
+        "grid_gather",
+    )
+    kernels.launches["grid_gather"] += 1
+    return out
+
+
+def grid_reduce_add_c1_plain(vals: torch.Tensor, bins: torch.Tensor,
+                             num_bins: int):
+    """vals [R, N] fp32, bins [R, N] int (ids >= num_bins are dropped) ->
+    [R, num_bins] fp32 per-bin sums (`index_add_`)."""
+    r = vals.shape[0]
+    ids = bins.long().clamp(max=num_bins)
+    flat = (ids + torch.arange(r, device=ids.device)[:, None] * (num_bins + 1))
+    out = torch.zeros(r * (num_bins + 1), dtype=torch.float32, device=vals.device)
+    out.index_add_(0, flat.reshape(-1), vals.float().reshape(-1))
+    return out.reshape(r, num_bins + 1)[:, :num_bins]
+
+
+def grid_reduce_add_c1(vals: torch.Tensor, bins: torch.Tensor, num_bins: int,
+                       plain: bool = False):
+    """Per-bin sums of scalar values whose bins are ascending within each
+    row (the drop bucket, int32 max, sorts last). Same contract as
+    `grid_reduce_add_c1_plain`."""
+    if plain or vals.device.type == "cpu":
+        return grid_reduce_add_c1_plain(vals, bins, num_bins)
+    _check_cuda(vals, bins)
+    if vals.dim() != 2 or bins.shape != vals.shape:
+        raise ValueError(f"vals {tuple(vals.shape)}, bins {tuple(bins.shape)}")
+    r, n = vals.shape
+    vals = vals.to(torch.float32).contiguous()
+    bins = bins.to(torch.int32).contiguous()
+    bounds = torch.arange(
+        num_bins + 1, dtype=torch.int32, device=bins.device
+    ).expand(r, num_bins + 1).contiguous()
+    starts = torch.searchsorted(bins, bounds, out_int32=True)
+    out = torch.empty(r, num_bins, dtype=torch.float32, device=vals.device)
+    fn = kernels.function("grid_reduce_add_c1")
+    kernels.check(
+        fn(
+            vals.data_ptr(), starts.data_ptr(), out.data_ptr(), r, n, num_bins,
+            torch.cuda.current_stream(vals.device).cuda_stream,
+        ),
+        "grid_reduce_add_c1",
+    )
+    kernels.launches["grid_reduce_add_c1"] += 1
+    return out

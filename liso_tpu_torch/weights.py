@@ -20,6 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from liso_tpu_torch.models.slim import MovAvgState
+
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -47,44 +49,78 @@ def _convert(sub: nn.Module, leaf: str, arr: np.ndarray):
     raise KeyError(leaf)
 
 
-def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
-    """Fill `module` (SlimModel or BoxLearner) from a flax variables tree
-    {"params": ..., "batch_stats": ...} of nested dicts of numpy arrays.
-    Raises if a flax leaf names no tensor of the module, if shapes differ,
-    or if a tensor of the module is left unfilled."""
+def flax_state_dict(module: nn.Module, variables: Mapping) -> dict:
+    """The module's tensors named by a flax variables tree {"params": ...,
+    "batch_stats": ...} of nested dicts of numpy arrays, converted to the
+    module's layout: {state_dict key: torch.Tensor}. Raises if a flax leaf
+    names no tensor of the module or if shapes differ. Also converts a tree
+    shaped like the params (an optimizer moment) given as "params"."""
     state = module.state_dict()
-    filled = set()
+    out = {}
     leaves = [
         (("params",) + p, v) for p, v in _flatten(variables.get("params", {}))
     ] + [
         (("batch_stats",) + p, v)
         for p, v in _flatten(variables.get("batch_stats", {}))
     ]
-    with torch.no_grad():
-        for path, value in leaves:
-            coll, mod_path, leaf = path[0], ".".join(path[1:-1]), path[-1]
-            arr = np.asarray(value)
-            try:
-                sub = module.get_submodule(mod_path)
-                if coll == "batch_stats":
-                    name = _STATS[leaf]
-                else:
-                    name, arr = _convert(sub, leaf, arr)
-            except (AttributeError, KeyError) as e:
-                raise KeyError(
-                    f"flax leaf {'/'.join(path)} has no counterpart"
-                ) from e
-            key = f"{mod_path}.{name}"
-            if key not in state:
-                raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: no such tensor")
-            if tuple(state[key].shape) != arr.shape:
-                raise ValueError(
-                    f"{'/'.join(path)} -> {key}: shape {arr.shape} vs "
-                    f"{tuple(state[key].shape)}"
-                )
-            state[key].copy_(torch.from_numpy(np.array(arr, copy=True)))
-            filled.add(key)
-    missing = sorted(set(state) - filled)
+    for path, value in leaves:
+        coll, mod_path, leaf = path[0], ".".join(path[1:-1]), path[-1]
+        arr = np.asarray(value)
+        try:
+            sub = module.get_submodule(mod_path)
+            if coll == "batch_stats":
+                name = _STATS[leaf]
+            else:
+                name, arr = _convert(sub, leaf, arr)
+        except (AttributeError, KeyError) as e:
+            raise KeyError(f"flax leaf {'/'.join(path)} has no counterpart") from e
+        key = f"{mod_path}.{name}" if mod_path else name
+        if key not in state:
+            raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: no such tensor")
+        if tuple(state[key].shape) != arr.shape:
+            raise ValueError(
+                f"{'/'.join(path)} -> {key}: shape {arr.shape} vs "
+                f"{tuple(state[key].shape)}"
+            )
+        out[key] = torch.from_numpy(np.array(arr, copy=True))
+    return out
+
+
+def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
+    """Fill `module` (SlimModel or BoxLearner) from a flax variables tree
+    {"params": ..., "batch_stats": ...} of nested dicts of numpy arrays.
+    Raises if a flax leaf names no tensor of the module, if shapes differ,
+    or if a tensor of the module is left unfilled."""
+    tensors = flax_state_dict(module, variables)
+    state = module.state_dict()
+    missing = sorted(set(state) - set(tensors))
     if missing:
         raise KeyError(f"tensors without a flax leaf: {missing}")
+    with torch.no_grad():
+        for key, value in tensors.items():
+            state[key].copy_(value)
     return module
+
+
+def load_slim_train_state(trainer, state: Mapping):
+    """Carry a JAX `SlimTrainState` across into a `SlimTrainer`, given as
+    numpy: {"step", "params", "batch_stats", "nu" (the RMSprop second
+    moment, a params-shaped tree), "movavg" ({field: array} of
+    MovAvgState)}. The optimizer's schedule count must equal the step.
+    The JAX state's class counters of the supervised threshold are not
+    carried: the port trains without them."""
+    load_flax_variables(trainer.model, {"params": state["params"],
+                                        "batch_stats": state["batch_stats"]})
+    nu = flax_state_dict(trainer.model, {"params": state["nu"]})
+    if set(nu) != set(trainer.nu):
+        raise KeyError(f"nu leaves {sorted(set(nu) ^ set(trainer.nu))} differ")
+    with torch.no_grad():
+        for key, value in nu.items():
+            trainer.nu[key].copy_(value)
+    trainer.step = int(state["step"])
+    trainer.movavg = MovAvgState(**{
+        k: torch.as_tensor(np.array(v), dtype=torch.float32,
+                           device=trainer.device)
+        for k, v in state["movavg"].items() if k in MovAvgState._fields
+    })
+    return trainer

@@ -1,0 +1,102 @@
+"""The plain versions of kernels K4 (grid_gather) and K3
+(grid_reduce_add_c1), and the scatter-max VJP built on K4
+(liso_tpu_torch/ops/grid_scatter.py), against liso_tpu's Pallas kernels in
+interpret mode (liso_tpu/ops/grid_scatter_pallas.py). The CUDA kernels are
+held to these plain versions on the card (tests/test_torch_cuda_kernels.py,
+chip_smoke.py)."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from liso_tpu.ops import grid_scatter_pallas as jgs
+from liso_tpu_torch.ops import grid_scatter as tgs
+
+torch.set_num_threads(1)
+IMAX = np.iinfo(np.int32).max
+
+
+def _sorted_cells(rng, b, n, nc, drop_frac=0.1):
+    cells = np.sort(rng.randint(0, nc, (b, n)).astype(np.int32), -1)
+    drop = rng.rand(b, n) < drop_frac
+    cells[drop] = nc  # the drop bucket, id num_cells ...
+    cells[:, -3:] = IMAX  # ... and the int32-max pad
+    return np.sort(cells, -1)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("nc,c", [(1000, 8), (4096, 64)])
+def test_grid_gather_matches_pallas(nc, c):
+    """Bitwise: a gather moves values. Drop-bucket ids read 0."""
+    rng = np.random.RandomState(nc + c)
+    cells = _sorted_cells(rng, 2, 1024, nc)
+    grid = rng.randn(2, nc, c).astype(np.float32)
+    want = jgs._grid_gather_impl(jnp.asarray(grid), jnp.asarray(cells),
+                                 interpret=True)
+    got = tgs.grid_gather(_t(grid), _t(cells))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert bool((got[_t(cells) >= nc] == 0).all())
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_scatter_max_vjp_matches_pallas_vjp(ties):
+    """The port's autograd of grid_scatter_max_occ vs jax.vjp of
+    grid_reduce_with_occ(..., "max", interpret=True): the TPU VJP, where
+    every tied maximum gets the full cotangent. With `ties`, features are
+    rounded to a coarse lattice so that many points of a cell share its
+    maximum (JAX's CPU segment_max would split the cotangent there)."""
+    rng = np.random.RandomState(3 + ties)
+    b, n, nc, c = 2, 1024, 256, 16
+    cells = _sorted_cells(rng, b, n, nc)
+    feats = rng.randn(b, n, c).astype(np.float32)
+    if ties:
+        feats = np.round(feats)
+    g = rng.randn(b, nc, c).astype(np.float32)
+    (want_grid, want_occ), vjp = jax.vjp(
+        lambda f: jgs.grid_reduce_with_occ(f, jnp.asarray(cells), nc, "max",
+                                           True),
+        jnp.asarray(feats),
+    )
+    (want_df,) = vjp((jnp.asarray(g), jnp.zeros_like(want_occ)))
+    tf = _t(feats).requires_grad_()
+    grid, occ = tgs.grid_scatter_max_occ(tf, _t(cells), nc)
+    (grid * _t(g)).sum().backward()
+    np.testing.assert_array_equal(grid.detach().numpy(), np.asarray(want_grid))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(want_occ))
+    np.testing.assert_array_equal(tf.grad.numpy(), np.asarray(want_df))
+    if ties:  # the data really has ties that take the full cotangent
+        winners = (tf.grad != 0).sum()
+        assert int(winners) > int((grid != 0).sum()) + 100
+
+
+@pytest.mark.parametrize("rows,n,res", [(2, 4096, 2048), (3, 2048, 100_000)])
+def test_grid_reduce_add_c1_matches_pallas(rows, n, res):
+    """K3's plain version vs grid_reduce(..., "add", interpret=True) with
+    C = 1 (the scalar-channel kernel): per-bin fp32 sums in other orders,
+    within n * 2^-24 * sum |v| of each bin, twice. The second case is the
+    threshold histogram's own bin count (padded to a multiple of 2048)."""
+    rng = np.random.RandomState(rows)
+    res_pad = -(-res // 2048) * 2048
+    bins = np.sort(rng.randint(0, res + res // 8, (rows, n)).astype(np.int32), -1)
+    bins[:, :50] = 7  # a crowded bin
+    bins = np.sort(bins, -1)
+    bins[bins >= res] = IMAX
+    if rows == 3:
+        bins[2] = IMAX  # an all-dropped row
+    vals = rng.randn(rows, n).astype(np.float32)
+    want = np.asarray(jgs.grid_reduce(
+        jnp.asarray(vals[..., None]), jnp.asarray(bins), res_pad, "add", True
+    ))[..., 0]
+    got = tgs.grid_reduce_add_c1(_t(vals), _t(bins), res_pad).numpy()
+    assert got.shape == want.shape == (rows, res_pad)
+    absum = tgs.grid_reduce_add_c1(_t(np.abs(vals)), _t(bins), res_pad).numpy()
+    cnt = tgs.grid_reduce_add_c1(_t(np.ones_like(vals)), _t(bins), res_pad).numpy()
+    assert (np.abs(got - want) <= 2 * cnt * 2.0**-24 * absum).all()
+    assert (got[:, res:] == 0).all()
+    if rows == 3:
+        assert (got[2] == 0).all()

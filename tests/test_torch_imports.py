@@ -45,6 +45,7 @@ def test_package_imports_with_jax_blocked():
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'liso_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import liso_tpu_torch.serve, liso_tpu_torch.weights\n"
+        "import liso_tpu_torch.train.slim_train\n"
         "import liso_tpu_torch.kernels\n"
         "print('ok')\n"
     )
@@ -66,10 +67,22 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     bev, slim, det = serve.build_models(grid=32, num_iters=1, device="cpu")
     assert next(slim.parameters()).device.type == "cpu"
 
+    from liso_tpu_torch.train.slim_train import SlimTrainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SlimTrainer(bev, num_iters=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SlimTrainer(bev, num_iters=1, device="cuda")
+    trainer = SlimTrainer(bev, num_iters=1, device="cpu")
+    assert all(p.device.type == "cpu" for p in trainer.model.parameters())
+
 
 def test_kernels_build_lazily():
     """Importing the kernel module builds and loads nothing."""
     from liso_tpu_torch import kernels
 
     assert kernels._loaded == {}
-    assert set(kernels.launches) == {"grid_scatter_max_occ", "corr_window_fwd"}
+    assert set(kernels.launches) == {
+        "grid_scatter_max_occ", "corr_window_fwd", "grid_gather",
+        "grid_reduce_add_c1", "corr_window_bwd", "knn_banded",
+    }

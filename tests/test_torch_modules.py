@@ -150,6 +150,7 @@ def test_centerpoint_net():
     v = random_variables(jm.init, jnp.asarray(pts), jnp.asarray(valid), seed=8)
     want, want_occ = jax.jit(jm.apply)(v, jnp.asarray(pts), jnp.asarray(valid))
     tm = load_flax_variables(CenterPointNet(BevSetup((100.0, 100.0), (64, 64))), v)
+    tm.eval()  # the JAX side applies with train=False: BN running stats
     with torch.no_grad():
         got, got_occ = tm(t(pts), t(valid))
     np.testing.assert_array_equal(got_occ.numpy(), np.asarray(want_occ))
@@ -168,6 +169,7 @@ def test_box_learner():
         v, jnp.asarray(pts), jnp.asarray(valid)
     )
     tm = load_flax_variables(BoxLearner(BevSetup((100.0, 100.0), (64, 64))), v)
+    tm.eval()  # the JAX side applies with train=False: BN running stats
     with torch.no_grad():
         got = tm(t(pts), t(valid))[0]
     for f in ("pos", "dims", "rot", "probs", "velo"):

@@ -31,7 +31,20 @@ Phases, each printing JSON lines:
                count reset just before and read just after; one profiled
                step (device time by kernel family); one step from the same
                state through the plain versions, compared on loss and
-               gradient norm.
+               gradient norm; and K1-add (the grid_gather backward, which
+               no path runs) against its plain version at the adjoint of
+               K4's check and at the decoder gather's C = 2;
+  6. detect_train - the CenterPoint detector's train step
+               (DetectorTrainer.train_step, fp32, AdamW + OneCycle) at grid
+               512 over 100 m, batch 2, 32768 points per frame, 64 target
+               slots, on the mining benchmark's synthetic drive: K1 (fp32,
+               C = 64) and K4 held bitwise to their plain versions on the
+               drive's cells and timed at this path's shapes; 2 warm-up
+               steps, then 8 timed steps with every launch count reset just
+               before and read just after; one profiled step; one step from
+               the same state through the plain versions (loss, gradient
+               norm); predict_step timed (median of 10) and its kept boxes
+               held to the plain run's.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, exits non-zero and
 prints no result. Details go to chiprun_out/chip_smoke.json.
@@ -51,6 +64,19 @@ OUT_DIR = ROOT / "chiprun_out"
 GRID, N_PTS, BATCH, ITERS, STEPS = 512, 32768, 8, 6, 12
 # the SLIM train step of benchmarks/slim_920_bench.py
 T_GRID, T_RANGE, T_PTS, T_ITERS, T_WARMUP, T_STEPS = 920, 120.0, 65536, 6, 2, 8
+# the detector train step: liso + centerpoint at bev_100m_512, batch 2,
+# 32768 points per frame (DataCfg.n_max), 64 target slots (k_max_boxes),
+# AdamW + OneCycle at max_lr 1e-3 over 30000 x 2 + 2 steps
+D_GRID, D_RANGE, D_BATCH, D_PTS, D_SLOTS, D_OBJECTS = 512, 100.0, 2, 32768, 64, 6
+D_MAX_LR, D_TOTAL_STEPS, D_PREDICTS = 1e-3, 30000 * 2 + 2, 10
+# Kernel step against plain step from the same state, both fp32 (TF32 off):
+# K1 and K4 are bitwise, so the forward and the loss agree to cuDNN's
+# choice of algorithm; the backward's weight gradients are summed by cuDNN
+# in no fixed order, and this random network's gradient amplifies a change
+# of summation order (the CPU parity test measures 2.4e-4 on its norm).
+DET_LOSS_RTOL = 1e-5
+DET_GRAD_NORM_RTOL = 1e-3
+DET_BOX_ATOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -131,41 +157,38 @@ def bound(nbytes, nops, rate):
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
-def phase_kernels():
+def dtype_name(dtype) -> str:
+    return {"torch.bfloat16": "bf16", "torch.float32": "fp32"}[str(dtype)]
+
+
+def check_scatter_max(gen, cells, nc, c, dtype):
+    """K1 against its plain version (bitwise) on signed random features
+    (so negative maxima are covered) at the given cells."""
     import torch
 
-    from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
-    from liso_tpu_torch.ops import corr_fused, grid_scatter
-    from liso_tpu_torch.ops.bev import BevSetup
+    from liso_tpu_torch.ops import grid_scatter
 
-    g = torch.Generator(device="cuda").manual_seed(1)
-    bev = BevSetup((100.0, 100.0), (GRID, GRID))
-    nc = bev.num_cells
-    results = []
-
-    # K1 at the fused streaming step's shapes: the real cell ids of a cloud,
-    # signed bf16 features (so negative maxima are covered), C = 128
-    (pts,), valid = clouds(0, 1)
-    cells = prepare_pillar_inputs(pts, valid, bev).cell
-    feats = torch.randn(BATCH, N_PTS, 128, generator=g, device="cuda").to(
-        torch.bfloat16
-    )
+    b, n = cells.shape
+    feats = torch.randn(b, n, c, generator=gen, device="cuda").to(dtype)
     got_g, got_o = grid_scatter.grid_scatter_max_occ(feats, cells, nc)
     want_g, want_o = grid_scatter.grid_scatter_max_occ(feats, cells, nc, plain=True)
     torch.cuda.synchronize()
     if not (torch.equal(got_g, want_g) and torch.equal(got_o, want_o)):
-        fail("K1 grid_scatter_max_occ differs from its plain version")
-    idx = cells.long().clamp(max=nc).unsqueeze(-1).expand(-1, -1, 128)
-    lib_out = torch.zeros(BATCH, nc + 1, 128, dtype=torch.bfloat16, device="cuda")
+        fail(f"K1 grid_scatter_max_occ differs from its plain version at "
+             f"feats [{b}, {n}, {c}] {dtype_name(dtype)}")
+    idx = cells.long().clamp(max=nc).unsqueeze(-1).expand(-1, -1, c)
+    lib_out = torch.zeros(b, nc + 1, c, dtype=dtype, device="cuda")
     # the kernel reads the features only of the points that reach the grid:
-    # the rest (here most of them, cut by pillarize's |z| < 5 m) sit in the
+    # the rest (cut by pillarize's |z| < 5 m or outside the grid) sit in the
     # drop bucket past the last cell's range
     in_grid = int((cells < nc).sum())
-    k1_bytes = (in_grid * 128 * 2 + cells.numel() * 4 + got_g.numel() * 2
-                + got_o.numel() * 4)
-    k1_ops = feats.numel()  # one max per point channel
-    k1_bound, k1_by = bound(k1_bytes, k1_ops, BF16_FLOP_PER_S)
-    results.append({
+    es = feats.element_size()
+    nbytes = (in_grid * c * es + cells.numel() * 4 + got_g.numel() * es
+              + got_o.numel() * 4)
+    # one max per point channel
+    bms, bby = bound(nbytes, feats.numel(),
+                     BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+    return {
         "name": "grid_scatter_max_occ",
         "route": "cuda",
         "source": "liso_tpu_torch/kernels/grid_scatter_max.cu",
@@ -175,16 +198,71 @@ def phase_kernels():
         "plain_ms": cuda_ms(
             lambda: grid_scatter.grid_scatter_max_occ(feats, cells, nc, plain=True)
         ),
-        "bound_ms": k1_bound,
-        "bound_by": k1_by,
+        "bound_ms": bms,
+        "bound_by": bby,
         "library_ms": cuda_ms(
             lambda: lib_out.scatter_reduce_(1, idx, feats, "amax", include_self=False)
         ),
-        "bytes": k1_bytes,
+        "bytes": nbytes,
         "points_in_grid": in_grid,
-        "shape": f"feats [{BATCH}, {N_PTS}, 128] bf16 -> grid [{BATCH}, {nc}, 128]",
-    })
-    del got_g, want_g, lib_out, idx
+        "shape": f"feats [{b}, {n}, {c}] {dtype_name(dtype)} -> grid "
+                 f"[{b}, {nc}, {c}]",
+    }
+
+
+def check_gather(gen, cells, nc, c, dtype):
+    """K4 against its plain version (bitwise) on a random grid at the given
+    cells (drop bucket for the points outside a pillar)."""
+    import torch
+
+    from liso_tpu_torch.ops import grid_scatter
+
+    b, n = cells.shape
+    grid = torch.randn(b, nc, c, generator=gen, device="cuda").to(dtype)
+    got = grid_scatter.grid_gather(grid, cells)
+    want = grid_scatter.grid_gather(grid, cells, plain=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"K4 grid_gather differs from its plain version at grid "
+             f"[{b}, {nc}, {c}] {dtype_name(dtype)}")
+    in_grid = int((cells < nc).sum())
+    idx = cells.long().clamp(max=nc - 1)[..., None].expand(-1, -1, c)
+    es = grid.element_size()
+    nbytes = cells.numel() * 4 + in_grid * c * es + got.numel() * es
+    bms, bby = bound(nbytes, 0, FP32_FLOP_PER_S)
+    return {
+        "name": "grid_gather", "route": "cuda",
+        "source": "liso_tpu_torch/kernels/grid_gather.cu",
+        "replaces": "liso_tpu/ops/grid_scatter_pallas.py:210",
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": cuda_ms(lambda: grid_scatter.grid_gather(grid, cells)),
+        "plain_ms": cuda_ms(lambda: grid_scatter.grid_gather(grid, cells, plain=True)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(lambda: torch.gather(grid, 1, idx)),
+        "library_call": "torch.gather (no drop-bucket mask)",
+        "bytes": nbytes, "points_in_grid": in_grid,
+        "shape": f"grid [{b}, {nc}, {c}] {dtype_name(dtype)} at cells "
+                 f"[{b}, {n}] -> [{b}, {n}, {c}]",
+    }
+
+
+def phase_kernels():
+    import torch
+
+    from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
+    from liso_tpu_torch.ops import corr_fused
+    from liso_tpu_torch.ops.bev import BevSetup
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    bev = BevSetup((100.0, 100.0), (GRID, GRID))
+    results = []
+
+    # K1 at the fused streaming step's shapes: the real cell ids of a cloud,
+    # signed bf16 features (so negative maxima are covered), C = 128
+    (pts,), valid = clouds(0, 1)
+    cells = prepare_pillar_inputs(pts, valid, bev).cell
+    results.append(check_scatter_max(g, cells, bev.num_cells, 128,
+                                     torch.bfloat16))
 
     # K2 at one RAFT lookup's shapes: coarse 64 x 64, C = 128, 4 levels;
     # coords = pixel grid + a random flow, some pixels far out of range
@@ -265,6 +343,56 @@ def bench_clouds(trainer):
     return FlowSample(pcs[0], pcs[1], eye, eye)
 
 
+def check_grid_reduce_add(gen, cells, nc, c, dtype):
+    """K1-add against its plain version (fp32 sums rounded once) at the
+    given cells: within 2 n 2^-24 sum|v| per cell, plus one ulp of a bf16
+    output (two fp32 sums may round to neighbouring bf16 values)."""
+    import torch
+
+    from liso_tpu_torch.ops import grid_scatter
+
+    b, n = cells.shape
+    gv = torch.randn(b, n, c, generator=gen, device="cuda").to(dtype)
+    got = grid_scatter.grid_reduce_add(gv, cells, nc)
+    want = grid_scatter.grid_reduce_add(gv, cells, nc, plain=True)
+    absum = grid_scatter.grid_reduce_add(gv.float().abs(), cells, nc, plain=True)
+    cnt = grid_scatter.grid_reduce_add(
+        torch.ones(b, n, 1, device="cuda"), cells, nc, plain=True)
+    torch.cuda.synchronize()
+    tol = 2 * cnt * 2.0**-24 * absum
+    if dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(want.float())
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= tol).all()):
+        fail(f"K1-add grid_reduce_add (C = {c}) differs from its plain version "
+             "beyond the fp32 sum-order bound")
+    if not bool((got[(cnt == 0).expand_as(got)] == 0).all()):
+        fail("K1-add grid_reduce_add: an empty cell is not 0")
+    in_grid = int((cells < nc).sum())
+    es = gv.element_size()
+    # read the rows that reach the grid and the cells, write the grid
+    nbytes = cells.numel() * 4 + in_grid * c * es + got.numel() * es
+    bms, bby = bound(nbytes, in_grid * c, FP32_FLOP_PER_S)
+    idx = cells[0].long().clamp(max=nc)
+    lib_out = torch.zeros(b, nc + 1, c, dtype=dtype, device="cuda")
+    return {
+        "name": "grid_reduce_add", "route": "cuda",
+        "source": "liso_tpu_torch/kernels/grid_reduce_add.cu",
+        "replaces": "liso_tpu/ops/grid_scatter_pallas.py:118",
+        "max_abs_err": float(err.max()),
+        "max_err_over_bound": float((err / tol.clamp(min=1e-30)).max()),
+        "ms": cuda_ms(lambda: grid_scatter.grid_reduce_add(gv, cells, nc)),
+        "plain_ms": cuda_ms(
+            lambda: grid_scatter.grid_reduce_add(gv, cells, nc, plain=True)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(lambda: lib_out.index_add_(1, idx, gv)),
+        "library_call": "index_add_ into a zeroed grid with a drop row",
+        "bytes": nbytes, "points_in_grid": in_grid,
+        "shape": f"g [{b}, {n}, {c}] {str(dtype).split('.')[-1]} -> "
+                 f"[{b}, {nc}, {c}]",
+    }
+
+
 def phase_train_kernels(trainer, batch):
     """K3-K6 at the SLIM train step's shapes."""
     import torch
@@ -282,30 +410,16 @@ def phase_train_kernels(trainer, batch):
     # cell ids of frame 0 (drop bucket for the points outside a pillar)
     nc = trainer.bev.num_cells
     cells = prepare_pillar_inputs(p0.pcl, p0.valid, trainer.bev).cell
-    grid = torch.randn(1, nc, 64, generator=g, device="cuda").to(torch.bfloat16)
-    got = grid_scatter.grid_gather(grid, cells)
-    want = grid_scatter.grid_gather(grid, cells, plain=True)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("K4 grid_gather differs from its plain version")
-    in_grid = int((cells < nc).sum())
-    idx = cells.long().clamp(max=nc - 1)[..., None].expand(-1, -1, 64)
-    nbytes = cells.numel() * 4 + in_grid * 64 * 2 + got.numel() * 2
-    bms, bby = bound(nbytes, 0, FP32_FLOP_PER_S)
-    results.append({
-        "name": "grid_gather", "route": "cuda",
-        "source": "liso_tpu_torch/kernels/grid_gather.cu",
-        "replaces": "liso_tpu/ops/grid_scatter_pallas.py:210",
-        "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": cuda_ms(lambda: grid_scatter.grid_gather(grid, cells)),
-        "plain_ms": cuda_ms(lambda: grid_scatter.grid_gather(grid, cells, plain=True)),
-        "bound_ms": bms, "bound_by": bby,
-        "library_ms": cuda_ms(lambda: torch.gather(grid, 1, idx)),
-        "library_call": "torch.gather (no drop-bucket mask)",
-        "bytes": nbytes, "points_in_grid": in_grid,
-        "shape": f"grid [1, {nc}, 64] bf16 at cells [1, {T_PTS}] -> [1, {T_PTS}, 64]",
-    })
-    del grid, got, want, idx
+    results.append(check_gather(g, cells, nc, 64, torch.bfloat16))
+
+    # K1-add, the grid_gather backward: (a) the adjoint of K4's check, g
+    # [1, 65536, 64] bf16 into the 846400 cells; (b) the decoder's gated
+    # flow gather, C = 2 fp32. No path runs it (slim_decoder.py:120).
+    # (its own generator: the later checks keep their inputs)
+    g_add = torch.Generator(device="cuda").manual_seed(3)
+    k1add = [check_grid_reduce_add(g_add, cells, nc, c, dt)
+             for c, dt in ((64, torch.bfloat16), (2, torch.float32))]
+    results.append({**k1add[0], "second_shape": k1add[1]})
 
     # K3: the threshold histogram, 6 iterations x (fw + bw) points, 100000
     # bins padded to 100352, bins sorted per row
@@ -438,23 +552,28 @@ def phase_train_kernels(trainer, batch):
     return results
 
 
-def snapshot(trainer):
+def snapshot(trainer, names):
+    """A copy of a trainer's model state and of its attributes `names`
+    (dicts of tensors, such as optimizer moments, or immutable values)."""
     import copy
 
-    return (copy.deepcopy(trainer.model.state_dict()),
-            {k: v.clone() for k, v in trainer.nu.items()}, trainer.step,
-            trainer.movavg)
+    return copy.deepcopy(trainer.model.state_dict()), {
+        n: copy.deepcopy(getattr(trainer, n)) for n in names}
 
 
 def restore(trainer, snap):
+    """Put a snapshot back; tensors in dicts are copied in place."""
     import torch
 
-    state, nu, step, movavg = snap
+    state, attrs = snap
     trainer.model.load_state_dict(state)
-    with torch.no_grad():
-        for k, v in nu.items():
-            trainer.nu[k].copy_(v)
-    trainer.step, trainer.movavg = step, movavg
+    for n, v in attrs.items():
+        if isinstance(v, dict):
+            with torch.no_grad():
+                for k, t in v.items():
+                    getattr(trainer, n)[k].copy_(t)
+        else:
+            setattr(trainer, n, v)
 
 
 FAMILIES = (
@@ -464,16 +583,19 @@ FAMILIES = (
     ("K1 grid_scatter_max_occ", ("grid_scatter_max",)),
     ("K4 grid_gather", ("grid_gather",)),
     ("K3 grid_reduce_add_c1", ("grid_reduce_add_c1",)),
+    ("K1-add grid_reduce_add", ("grid_reduce_add_kernel",)),
     ("NCHW <-> NHWC layout transforms (cuDNN)", ("nchwToNhwc", "nhwcToNchw")),
-    ("convolutions (cuDNN)", ("implicit_gemm", "implicit_convolve", "fprop",
-                              "dgrad", "wgrad", "conv", "cudnn")),
-    ("matmul (cuBLAS, CUTLASS)", ("gemm", "Kernel2", "cublas")),
     ("GroupNorm / BatchNorm", ("Norm", "norm", "RowwiseMoments",
                                "ComputeInternalGradients",
-                               "ComputeFusedParams")),
+                               "ComputeFusedParams", "bn_fw", "bn_bw")),
+    # cuDNN's fp32 FFT convolutions run complex cuBLAS GEMMs (cf32)
+    ("convolutions (cuDNN)", ("implicit_gemm", "implicit_convolve", "fprop",
+                              "dgrad", "wgrad", "conv", "cudnn", "fft",
+                              "cf32")),
+    ("matmul (cuBLAS, CUTLASS)", ("gemm", "Kernel2", "cublas")),
     ("sort, scan, searchsorted", ("sort", "scan", "search", "Radix", "radix")),
     ("reductions", ("reduce",)),
-    ("cat", ("Cat", "cat")),
+    ("cat", ("CatArray",)),  # not "cat": it is in "scatter"
     ("index, gather, scatter (torch)", ("index", "gather", "scatter")),
     ("device-side asserts", ("assert",)),
     ("elementwise and copies", ("elementwise", "vectorized", "unrolled",
@@ -535,7 +657,7 @@ def phase_train(kernels):
     if not all(bool(torch.isfinite(p).all()) for p in trainer.params.values()):
         fail("parameters not finite after the train steps")
 
-    snap = snapshot(trainer)
+    snap = snapshot(trainer, ("nu", "step", "movavg"))
     # two profiled steps, each in its own profiler session: one call's
     # profile once reported every kernel at half its duration, and a second
     # sample shows such a session up
@@ -576,6 +698,175 @@ def phase_train(kernels):
                       "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL},
     }
     return kres, res, (rows, host_rows)
+
+
+def drive_scene():
+    """Two frames (t = 0, 1) of the mining benchmark's synthetic drive
+    (benchmarks/mining_bench.py:42-69, numpy RandomState(0)): background
+    uniform within +-45 m (z in [-1, 1.5]), 6 objects of 256 points, each a
+    gaussian blob (sigma 0.9 m) moving at a constant velocity, intensity 1.
+    Each object is a valid target box: its center, 3.6 m (+-2 sigma) on
+    every side, heading along its velocity; 64 slots, the rest empty.
+    Returns (points [2, 32768, 4], valid, target Boxes [2, 64])."""
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.ops.boxes import Boxes
+
+    rng = np.random.RandomState(0)
+    n_obj = D_OBJECTS
+    bg = rng.uniform(-45, 45, (D_PTS - 256 * n_obj, 3)).astype(np.float32)
+    bg[:, 2] = rng.uniform(-1.0, 1.5, len(bg))
+    obj_pos = rng.uniform(-30, 30, (n_obj, 3)).astype(np.float32)
+    obj_pos[:, 2] = 0.0
+    obj_vel = rng.uniform(-1.2, 1.2, (n_obj, 3)).astype(np.float32)
+    obj_vel[:, 2] = 0.0
+    obj_pts = rng.normal(0, 0.9, (n_obj, 256, 3)).astype(np.float32)
+    frames, centers = [], []
+    for t in range(D_BATCH):
+        c = obj_pos + obj_vel * (t * 0.1)
+        pcl = np.concatenate([bg, *(obj_pts + c[:, None])]).astype(np.float32)
+        frames.append(np.concatenate([pcl, np.ones((len(pcl), 1), np.float32)], 1))
+        centers.append(c)
+    target = Boxes.empty(D_SLOTS, batch=(D_BATCH,), device="cuda")
+    target.pos[:, :n_obj] = torch.from_numpy(np.stack(centers)).cuda()
+    target.dims[:, :n_obj] = 3.6
+    target.rot[:, :n_obj, 0] = torch.from_numpy(
+        np.arctan2(obj_vel[:, 1], obj_vel[:, 0])).cuda()
+    target.probs[:, :n_obj] = 1.0
+    target.valid[:, :n_obj] = True
+    pts = torch.from_numpy(np.stack(frames)).cuda()
+    return pts, torch.ones(pts.shape[:2], dtype=torch.bool, device="cuda"), target
+
+
+def phase_detect_train(kernels):
+    """The CenterPoint detector's train and predict steps at full width."""
+    import torch
+
+    from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
+    from liso_tpu_torch.ops.bev import BevSetup
+    from liso_tpu_torch.train.detector_train import DetectorTrainer
+
+    bev = BevSetup((D_RANGE, D_RANGE), (D_GRID, D_GRID))
+    trainer = DetectorTrainer(bev, max_lr=D_MAX_LR, total_steps=D_TOTAL_STEPS,
+                              seed=0, device="cuda")
+    pts, valid, target = drive_scene()
+    # K1 and K4 at this path's shapes, on the drive's real cells: the
+    # pillar encoder's fp32 scatter of C = 64 features and the gather of
+    # its backward
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cells = prepare_pillar_inputs(pts, valid, bev).cell
+    kres = [check(g, cells, bev.num_cells, 64, torch.float32)
+            for check in (check_scatter_max, check_gather)]
+    for _ in range(T_WARMUP):
+        trainer.train_step(pts, valid, target)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_ms, losses = [], []
+    for _ in range(T_STEPS):
+        t0 = time.perf_counter()
+        m = trainer.train_step(pts, valid, target)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss/total"]))
+    launches = dict(kernels.launches)
+    per_step = {"grid_scatter_max_occ": 1, "grid_gather": 2}
+    expect = {k: per_step.get(k, 0) * T_STEPS for k in launches}
+    if launches != expect:
+        fail(f"detector train step launches {launches}, expected {expect}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        fail(f"detector train losses not finite: {losses}")
+    if not all(bool(torch.isfinite(p).all()) for p in trainer.params.values()):
+        fail("detector parameters not finite after the train steps")
+
+    snap = snapshot(trainer, ("mu", "nu", "step", "count"))
+    profiled = [profile_window(lambda: trainer.train_step(pts, valid, target))
+                for _ in range(2)]
+    counts, dev_ms, rows, host_rows = profiled[0]
+    zero = {k: 0 for k in kernels.launches}
+    if counts != {**zero, **per_step}:
+        fail(f"profiler saw launches {counts} in a detector train step, "
+             f"expected {per_step}")
+    restore(trainer, snap)
+    mk = trainer.train_step(pts, valid, target)
+    restore(trainer, snap)
+    kernels.reset_launches()
+    mp = trainer.train_step(pts, valid, target, plain=True)
+    torch.cuda.synchronize()
+    if any(kernels.launches.values()):
+        fail(f"the plain detector step launched kernels: {dict(kernels.launches)}")
+    cmp = {k: (float(mk[k]), float(mp[k])) for k in ("loss/total", "grad_norm")}
+    for k, rtol in (("loss/total", DET_LOSS_RTOL), ("grad_norm", DET_GRAD_NORM_RTOL)):
+        a, b = cmp[k]
+        if not (a == a and b == b) or abs(a - b) > rtol * abs(b):
+            fail(f"detector train step {k}: kernel path {a} vs plain path {b} "
+                 f"(rtol {rtol})")
+
+    # predict_step from the state after the timed steps
+    restore(trainer, snap)
+    trainer.predict_step(pts, valid)  # warm-up
+    kernels.reset_launches()
+    pred_ms = []
+    for _ in range(D_PREDICTS):
+        t0 = time.perf_counter()
+        boxes = trainer.predict_step(pts, valid)
+        torch.cuda.synchronize()
+        pred_ms.append((time.perf_counter() - t0) * 1e3)
+    pred_launches = dict(kernels.launches)
+    if pred_launches != {**zero, "grid_scatter_max_occ": D_PREDICTS}:
+        fail(f"predict_step launches {pred_launches}, expected one K1 per call")
+    kept = boxes.valid.sum(-1)
+    if tuple(boxes.pos.shape) != (D_BATCH, trainer.post_max_boxes, 3) or bool(
+            (kept > trainer.post_max_boxes).any()):
+        fail(f"predict_step boxes: shape {tuple(boxes.pos.shape)}, kept {kept.tolist()}")
+    for f in ("pos", "dims", "rot", "probs"):
+        if not bool(torch.isfinite(getattr(boxes, f)).all()):
+            fail(f"predict_step {f} not finite")
+    ref = trainer.predict_step(pts, valid, plain=True)
+    box_diff = max(float((getattr(boxes, f) - getattr(ref, f)).abs().max())
+                   for f in ("pos", "dims", "rot", "probs"))
+    if not torch.equal(boxes.valid, ref.valid) or box_diff > DET_BOX_ATOL:
+        fail(f"predict_step kept boxes differ from the plain run's (max abs "
+             f"diff {box_diff}, kept {kept.tolist()} vs "
+             f"{ref.valid.sum(-1).tolist()})")
+    pcounts, pdev_ms, prows, _ = profile_window(
+        lambda: trainer.predict_step(pts, valid))
+    res = {
+        "phase": "detect_train",
+        "grid": D_GRID, "range_m": D_RANGE, "points": D_PTS, "batch": D_BATCH,
+        "target_slots": D_SLOTS, "objects": D_OBJECTS,
+        "dtype": "fp32 (TF32 off by DetectorTrainer)",
+        "max_lr": D_MAX_LR, "total_steps": D_TOTAL_STEPS,
+        "points_in_pillar_z_window": int((pts[..., 2].abs() < 5.0).sum()),
+        "warmup_steps": T_WARMUP, "steps": T_STEPS,
+        "step_ms_mean": statistics.mean(step_ms),
+        "step_ms_median": statistics.median(step_ms),
+        "step_ms_max": max(step_ms),
+        "steps_per_s": 1e3 / statistics.mean(step_ms),
+        "losses": losses,
+        "launches": launches,
+        "peak_memory_gb": peak_gb,
+        "profiled_step": {"launches": counts, "device_ms": dev_ms,
+                          "device_ms_second_session": profiled[1][1],
+                          "device_busy_share": dev_ms / statistics.median(step_ms),
+                          "device_ms_by_family": families(rows)},
+        "kernel_vs_plain": cmp,
+        "tolerance": {"loss_rtol": DET_LOSS_RTOL,
+                      "grad_norm_rtol": DET_GRAD_NORM_RTOL,
+                      "predict_box_atol": DET_BOX_ATOL},
+        "predict_ms_median": statistics.median(pred_ms),
+        "predict_ms_max": max(pred_ms),
+        "predict_launches_per_call": {k: v // D_PREDICTS
+                                      for k, v in pred_launches.items()},
+        "predict_kept": kept.tolist(),
+        "predict_max_abs_diff_vs_plain": box_diff,
+        "predict_profiled": {"launches": pcounts, "device_ms": pdev_ms,
+                             "device_busy_share": pdev_ms / statistics.median(pred_ms),
+                             "device_ms_by_family": families(prows)},
+    }
+    return kres, res, (rows, host_rows, prows)
 
 
 def run_path(serve, slim, det, frames, valid, plain=False):
@@ -775,13 +1066,29 @@ def main() -> int:
     for r in tkres:
         emit({"phase": "kernel", **r})
     kres += tkres
+    torch.cuda.empty_cache()
+    # back to PyTorch's default (cuDNN may take TF32 for fp32 convolutions):
+    # DetectorTrainer turns TF32 off itself while a step runs
+    torch.backends.cudnn.allow_tf32 = True
+    dkres, detect, (det_rows, det_host_rows, pred_rows) = phase_detect_train(kernels)
+    emit(detect)
+    for r in dkres:
+        emit({"phase": "kernel", "path": "detect_train", **r})
+    by_name = {r["name"]: r for r in kres}
+    for r in dkres:
+        by_name[r["name"]]["detect_train_shape"] = {
+            k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms")}
     for r in kres:
         r["launches_by_path"] = {"serve": launches[r["name"]],
-                                 "train": train["launches"][r["name"]]}
-        r["launches"] = launches[r["name"]] + train["launches"][r["name"]]
+                                 "train": train["launches"][r["name"]],
+                                 "detect_train": detect["launches"][r["name"]]}
+        r["launches"] = sum(r["launches_by_path"].values())
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump({"device": device, "nvidia_smi": smi, "kernels": kres,
-                   "path": path, "train": train, "ptxas": ptxas,
+                   "detect_train_kernels": dkres, "path": path,
+                   "train": train, "detect_train": detect,
+                   "ptxas": ptxas,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     with open(OUT_DIR / "chip_smoke_profile.txt", "w") as f:
         for name, (_, dev_ms, rows, _) in profiles.items():
@@ -800,9 +1107,26 @@ def main() -> int:
                 "(profiler on)\n")
         for us, count, key in train_host_rows[:40]:
             f.write(f"{us:.1f}\t{count}\t{key}\n")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: r[k] for k in keys} for r in kres]})
+        f.write(f"# {smi}; one detector train step: device "
+                f"{detect['profiled_step']['device_ms']:.3f} ms, host "
+                f"{detect['step_ms_median']:.3f} ms (median, profiler off)\n")
+        f.write("# device_us count kernel\n")
+        for us, count, key in det_rows:
+            f.write(f"{us:.1f}\t{count}\t{key}\n")
+        f.write("# the same step on the host: self_cpu_us count operator "
+                "(profiler on)\n")
+        for us, count, key in det_host_rows[:40]:
+            f.write(f"{us:.1f}\t{count}\t{key}\n")
+        f.write(f"# {smi}; one detector predict_step: device "
+                f"{detect['predict_profiled']['device_ms']:.3f} ms, host "
+                f"{detect['predict_ms_median']:.3f} ms (median, profiler off)\n")
+        f.write("# device_us count kernel\n")
+        for us, count, key in pred_rows:
+            f.write(f"{us:.1f}\t{count}\t{key}\n")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "detect_train_shape")
+    emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})
     return 0

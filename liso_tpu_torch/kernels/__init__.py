@@ -69,6 +69,11 @@ SOURCES = {
         # q, refs, ranges, dist, index, B, Nq, Nr_pad, stream
         [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     ),
+    "grid_reduce_add": (
+        "grid_reduce_add",
+        # g, starts, out, B, N, C, num_cells, is_bf16, stream
+        [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 # Launch counts per kernel: each wrapper adds one where it launches its

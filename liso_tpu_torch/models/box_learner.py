@@ -1,5 +1,7 @@
 """BoxLearner facade: detector network + activation + decode (port of
-liso_tpu/models/box_learner.py for network="centerpoint")."""
+liso_tpu/models/box_learner.py for network="centerpoint"). flax's
+`train=True` is `BoxLearner.train()` here: batch-norm statistics of the
+batch, running statistics updated (models/centerpoint.py)."""
 from __future__ import annotations
 
 from torch import nn

@@ -1,6 +1,12 @@
 """CenterPoint-style single-stage BEV detector (port of
-liso_tpu/models/centerpoint.py, baseline configuration, inference only).
-Modules run NCHW; CenterPointNet takes and returns channels-last maps."""
+liso_tpu/models/centerpoint.py, baseline configuration). Modules run NCHW;
+CenterPointNet takes and returns channels-last maps.
+
+The mode follows `nn.Module.training`, as flax's `train` argument does: in
+train mode every BatchNorm (eps 1e-3, flax momentum 0.99) normalises with
+the batch statistics over (B, H, W) and moves its running statistics, and
+the pillar encoder's masked BatchNorm does the same over the in-pillar
+points; in eval mode the running statistics normalise."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
@@ -111,7 +117,9 @@ class SepHead(nn.Module):
 
 class CenterPointNet(nn.Module):
     """Pillar encoder -> RPN -> shared conv -> SepHead. Returns (dict of
-    channels-last [B, h, w, C] raw attribute maps, occupancy)."""
+    channels-last [B, h, w, C] raw attribute maps, occupancy). The point
+    features are scattered in `dtype` (fp32 when None, as the JAX package's
+    CPU path scatters; its TPU path casts them to bf16 first)."""
 
     def __init__(self, bev: BevSetup,
                  head_channels=(("pos", 3), ("dims", 3), ("rot", 2),

@@ -83,10 +83,17 @@ class GroupNorm(nn.GroupNorm):
 
 
 class BatchNorm(nn.Module):
-    """flax `BatchNorm(use_running_average=True)` over the last axis of a
-    [..., C] tensor or the channel axis of NCHW (`channel_dim`):
-    (x - mean) * rsqrt(var + eps) * scale + bias, computed in fp32, output
-    in `dtype` (else fp32). Inference only."""
+    """flax `BatchNorm(momentum=0.99, use_fast_variance=False)` over the
+    last axis of a [..., C] tensor or the channel axis of NCHW
+    (`channel_dim`), computed in fp32, output in `dtype` (else fp32). The
+    mode follows `self.training`:
+      * eval: (x - running_mean) * rsqrt(running_var + eps) * scale + bias;
+      * train: the same with the batch mean and the biased variance over
+        every axis but the channels, and the running statistics move as
+        running = 0.99 running + 0.01 batch (flax keeps the biased
+        variance; torch's momentum is flax's 1 - momentum)."""
+
+    MOMENTUM = 0.99
 
     def __init__(self, c, eps=1e-3, dtype=None, channel_dim=1, device=None):
         super().__init__()
@@ -99,14 +106,37 @@ class BatchNorm(nn.Module):
         self.channel_dim = channel_dim
 
     def forward(self, x):
-        shape = [1] * x.dim()
-        shape[self.channel_dim] = -1
-        v = lambda t: t.reshape(shape)
-        y = (x.float() - v(self.running_mean)) * v(
-            torch.rsqrt(self.running_var + self.eps)
-        )
-        y = y * v(self.weight) + v(self.bias)
+        if self.training:
+            y = self._train_forward(x)
+        else:
+            shape = [1] * x.dim()
+            shape[self.channel_dim] = -1
+            v = lambda t: t.reshape(shape)
+            y = (x.float() - v(self.running_mean)) * v(
+                torch.rsqrt(self.running_var + self.eps)
+            )
+            y = y * v(self.weight) + v(self.bias)
         return y.to(self.dtype) if self.dtype is not None else y
+
+    def _train_forward(self, x):
+        """One fused `F.batch_norm` normalises with the batch mean and the
+        biased variance (Welford's update, free of the one-pass
+        E[x^2] - E[x]^2 cancellation that use_fast_variance=False avoids).
+        Its buffers, run at momentum 1, receive the batch mean and the
+        UNBIASED variance; the biased one is that times (n - 1) / n."""
+        x = x.float().movedim(self.channel_dim, 1)
+        n = x.numel() // x.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var_unbiased = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var_unbiased, self.weight, self.bias,
+                         training=True, momentum=1.0, eps=self.eps)
+        with torch.no_grad():
+            var = var_unbiased * ((n - 1) / n)
+            self.running_mean.mul_(self.MOMENTUM).add_(
+                (1 - self.MOMENTUM) * mean)
+            self.running_var.mul_(self.MOMENTUM).add_(
+                (1 - self.MOMENTUM) * var)
+        return y.movedim(1, self.channel_dim)
 
 
 def init_weights(module: nn.Module, seed: int, small_std=()) -> nn.Module:

@@ -39,8 +39,6 @@ class MaskedBatchNorm(BatchNorm):
     0.99 (torch's 0.01): running = 0.99 running + 0.01 batch. In eval mode
     the running statistics normalise."""
 
-    MOMENTUM = 0.99
-
     def __init__(self, c: int, eps: float = 1e-3, device=None):
         super().__init__(c, eps=eps, channel_dim=-1, device=device)
 

@@ -9,7 +9,10 @@ liso_tpu/ops/grid_scatter_pallas.py).
         dfeats = where(winner, gather(g, cells), 0)
     so every tied maximum gets the full cotangent;
   * `grid_gather` - per-point row gather, drop bucket reads 0 (kernel K4,
-    `kernels/grid_gather.cu`), the gather of that VJP;
+    `kernels/grid_gather.cu`), the gather of that VJP; differentiable in
+    the grid with `grid_reduce_add` as its backward;
+  * `grid_reduce_add` - per-cell sums of cell-sorted point rows (kernel
+    K1-add, `kernels/grid_reduce_add.cu`), the `op="add"` of `grid_reduce`;
   * `grid_reduce_add_c1` - scatter-add of scalar values over sorted bins
     (kernel K3, `kernels/grid_reduce_add_c1.cu`), the C == 1 add of
     `grid_reduce`.
@@ -35,6 +38,17 @@ def _check_cuda(*tensors):
             "one CUDA device"
         )
     return dev
+
+
+def _cell_starts(cells: torch.Tensor, num_cells: int) -> torch.Tensor:
+    """[B, num_cells + 1] int32 ranges of ascending ids [B, N]: the points
+    of cell k are [starts[k], starts[k+1]); ids >= num_cells (the drop
+    bucket, int32 max included) sort past the last range."""
+    cells = cells.to(torch.int32).contiguous()
+    bounds = torch.arange(
+        num_cells + 1, dtype=torch.int32, device=cells.device
+    ).expand(cells.shape[0], num_cells + 1).contiguous()
+    return torch.searchsorted(cells, bounds, out_int32=True)
 
 
 def grid_scatter_max_occ_plain(
@@ -67,11 +81,7 @@ def _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain):
     feats = feats.contiguous()
     if feats.data_ptr() % (4 * feats.element_size()):
         raise ValueError("feats must be aligned to 4 elements (vector loads)")
-    cells = cells.to(torch.int32).contiguous()
-    bounds = torch.arange(
-        num_cells + 1, dtype=torch.int32, device=cells.device
-    ).expand(b, num_cells + 1).contiguous()
-    starts = torch.searchsorted(cells, bounds, out_int32=True)
+    starts = _cell_starts(cells, num_cells)
     grid = torch.empty(b, num_cells, c, dtype=feats.dtype, device=feats.device)
     occ = torch.empty(b, num_cells, 1, dtype=torch.float32, device=feats.device)
     fn = kernels.function("grid_scatter_max")
@@ -102,8 +112,9 @@ class _GridScatterMaxOcc(torch.autograd.Function):
         feats, cells, grid = ctx.saved_tensors
         if g_grid is None:
             return None, None, None, None
-        winner = feats == grid_gather(grid, cells, ctx.plain)
-        g_pts = grid_gather(g_grid.contiguous(), cells, ctx.plain)
+        # the raw gathers: K1's VJP does not differentiate through itself
+        winner = feats == _grid_gather_fwd(grid, cells, ctx.plain)
+        g_pts = _grid_gather_fwd(g_grid.contiguous(), cells, ctx.plain)
         return torch.where(winner, g_pts, 0.0), None, None, None
 
 
@@ -127,9 +138,7 @@ def grid_gather_plain(grid: torch.Tensor, cells: torch.Tensor):
     return torch.where((cells < nc).unsqueeze(-1), vals, 0.0)
 
 
-def grid_gather(grid: torch.Tensor, cells: torch.Tensor, plain: bool = False):
-    """Per-point row gather; same contract as `grid_gather_plain`. The
-    cells need not be sorted."""
+def _grid_gather_fwd(grid, cells, plain):
     if plain or grid.device.type == "cpu":
         return grid_gather_plain(grid, cells)
     _check_cuda(grid, cells)
@@ -159,16 +168,86 @@ def grid_gather(grid: torch.Tensor, cells: torch.Tensor, plain: bool = False):
     return out
 
 
+class _GridGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, grid, cells, plain):
+        ctx.save_for_backward(cells)
+        ctx.num_cells, ctx.plain = grid.shape[1], plain
+        return _grid_gather_fwd(grid, cells, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        (cells,) = ctx.saved_tensors
+        return grid_reduce_add(g.contiguous(), cells, ctx.num_cells,
+                               ctx.plain), None, None
+
+
+def grid_gather(grid: torch.Tensor, cells: torch.Tensor, plain: bool = False):
+    """Per-point row gather; same contract as `grid_gather_plain`.
+    Differentiable in `grid` with the TPU VJP (`grid_scatter_pallas.py:
+    476-495`): the cotangent of each grid row is the sum of its points'
+    cotangent rows (`grid_reduce_add`). Cell ids MUST be ascending per
+    sample when `grid` requires a gradient (checked: the backward reads each
+    cell's rows as one range); a gather without gradient takes any order."""
+    if grid.requires_grad and torch.is_grad_enabled() and bool(
+            (cells[:, 1:] < cells[:, :-1]).any()):
+        raise ValueError("grid_gather with a gradient needs ascending cell "
+                         "ids per sample")
+    return _GridGather.apply(grid, cells, plain)
+
+
+def grid_reduce_add_plain(g: torch.Tensor, cells: torch.Tensor,
+                          num_cells: int):
+    """g [B, N, C], cells [B, N] (ids >= num_cells, including the int32-max
+    pad, are dropped) -> [B, num_cells, C] per-cell sums in g's dtype,
+    empty cells 0: `index_add_` into a zeroed fp32 grid with a drop row,
+    rounded to g's dtype once."""
+    b, _, c = g.shape
+    ids = cells.long().clamp(max=num_cells)
+    flat = ids + torch.arange(b, device=ids.device)[:, None] * (num_cells + 1)
+    out = torch.zeros(b * (num_cells + 1), c, dtype=torch.float32,
+                      device=g.device)
+    out.index_add_(0, flat.reshape(-1), g.float().reshape(-1, c))
+    return out.reshape(b, num_cells + 1, c)[:, :num_cells].to(g.dtype)
+
+
+def grid_reduce_add(g: torch.Tensor, cells: torch.Tensor, num_cells: int,
+                    plain: bool = False):
+    """Per-cell sums of cell-sorted point rows (kernel K1-add,
+    `kernels/grid_reduce_add.cu`): the `op="add"` of `grid_reduce` at any
+    C >= 1. Cell ids MUST be ascending per sample. Same contract as
+    `grid_reduce_add_plain`; the kernel sums each cell in fp32 in the
+    points' order and rounds once (the TPU kernel rounds to g's dtype after
+    every 128-point chunk)."""
+    if plain or g.device.type == "cpu":
+        return grid_reduce_add_plain(g, cells, num_cells)
+    _check_cuda(g, cells)
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"g must be fp32 or bf16, got {g.dtype}")
+    if g.dim() != 3 or cells.shape != g.shape[:2]:
+        raise ValueError(f"g {tuple(g.shape)}, cells {tuple(cells.shape)}")
+    b, n, c = g.shape
+    g = g.contiguous()
+    starts = _cell_starts(cells, num_cells)
+    out = torch.empty(b, num_cells, c, dtype=g.dtype, device=g.device)
+    fn = kernels.function("grid_reduce_add")
+    kernels.check(
+        fn(
+            g.data_ptr(), starts.data_ptr(), out.data_ptr(), b, n, c,
+            num_cells, int(g.dtype == torch.bfloat16),
+            torch.cuda.current_stream(g.device).cuda_stream,
+        ),
+        "grid_reduce_add",
+    )
+    kernels.launches["grid_reduce_add"] += 1
+    return out
+
+
 def grid_reduce_add_c1_plain(vals: torch.Tensor, bins: torch.Tensor,
                              num_bins: int):
     """vals [R, N] fp32, bins [R, N] int (ids >= num_bins are dropped) ->
     [R, num_bins] fp32 per-bin sums (`index_add_`)."""
-    r = vals.shape[0]
-    ids = bins.long().clamp(max=num_bins)
-    flat = (ids + torch.arange(r, device=ids.device)[:, None] * (num_bins + 1))
-    out = torch.zeros(r * (num_bins + 1), dtype=torch.float32, device=vals.device)
-    out.index_add_(0, flat.reshape(-1), vals.float().reshape(-1))
-    return out.reshape(r, num_bins + 1)[:, :num_bins]
+    return grid_reduce_add_plain(vals.float()[..., None], bins, num_bins)[..., 0]
 
 
 def grid_reduce_add_c1(vals: torch.Tensor, bins: torch.Tensor, num_bins: int,
@@ -183,11 +262,7 @@ def grid_reduce_add_c1(vals: torch.Tensor, bins: torch.Tensor, num_bins: int,
         raise ValueError(f"vals {tuple(vals.shape)}, bins {tuple(bins.shape)}")
     r, n = vals.shape
     vals = vals.to(torch.float32).contiguous()
-    bins = bins.to(torch.int32).contiguous()
-    bounds = torch.arange(
-        num_bins + 1, dtype=torch.int32, device=bins.device
-    ).expand(r, num_bins + 1).contiguous()
-    starts = torch.searchsorted(bins, bounds, out_int32=True)
+    starts = _cell_starts(bins, num_bins)
     out = torch.empty(r, num_bins, dtype=torch.float32, device=vals.device)
     fn = kernels.function("grid_reduce_add_c1")
     kernels.check(

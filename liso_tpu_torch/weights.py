@@ -124,3 +124,23 @@ def load_slim_train_state(trainer, state: Mapping):
         for k, v in state["movavg"].items() if k in MovAvgState._fields
     })
     return trainer
+
+
+def load_detector_train_state(trainer, state: Mapping):
+    """Carry a JAX `DetectorTrainState` across into a `DetectorTrainer`,
+    given as numpy: {"step", "params", "batch_stats", "mu", "nu" (the
+    AdamW moments, params-shaped trees), "count" (the optimizer's count,
+    which its schedule reads)}."""
+    load_flax_variables(trainer.model, {"params": state["params"],
+                                        "batch_stats": state["batch_stats"]})
+    for name in ("mu", "nu"):
+        moment = flax_state_dict(trainer.model, {"params": state[name]})
+        mine = getattr(trainer, name)
+        if set(moment) != set(mine):
+            raise KeyError(f"{name} leaves {sorted(set(moment) ^ set(mine))} differ")
+        with torch.no_grad():
+            for key, value in moment.items():
+                mine[key].copy_(value)
+    trainer.step = int(state["step"])
+    trainer.count = int(state["count"])
+    return trainer

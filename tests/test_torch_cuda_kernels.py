@@ -199,8 +199,93 @@ def test_train_step_kernels_vs_plain(gen):
         m = tr.train_step(batch, plain=plain)
         out.append(m)
         if not plain:
-            assert all(v > 0 for v in kernels.launches.values()), kernels.launches
+            # every kernel but K1-add, which no path of the port runs
+            assert kernels.launches["grid_reduce_add"] == 0
+            assert all(v > 0 for k, v in kernels.launches.items()
+                       if k != "grid_reduce_add"), kernels.launches
         else:
             assert all(v == 0 for v in kernels.launches.values()), kernels.launches
     for k in ("loss", "grad_norm"):
         torch.testing.assert_close(out[0][k], out[1][k], rtol=2e-3, atol=0)
+
+
+@pytest.mark.parametrize(
+    "b,n,nc,c,dtype",
+    [
+        (1, 65536, 846400, 64, torch.bfloat16),  # the adjoint of K4's check
+        (1, 65536, 846400, 2, torch.float32),  # the decoder gather's C
+        (2, 4096, 1000, 8, torch.float32),  # crowded cells
+        (2, 4096, 5000, 3, torch.bfloat16),  # odd C: the scalar path
+    ],
+)
+def test_grid_reduce_add_within_sum_order_bound(gen, b, n, nc, c, dtype):
+    """K1-add against its plain version (fp32 sums, rounded once): within
+    2 n 2^-24 sum|v| per cell, plus one ulp of the output type where it is
+    bf16 (the two fp32 sums may round to neighbouring bf16 values)."""
+    cells = _sorted_cells(gen, b, n, nc)
+    g = torch.randn(b, n, c, generator=gen, device="cuda").to(dtype)
+    before = kernels.launches["grid_reduce_add"]
+    got = grid_scatter.grid_reduce_add(g, cells, nc)
+    assert kernels.launches["grid_reduce_add"] == before + 1
+    want = grid_scatter.grid_reduce_add(g, cells, nc, plain=True)
+    absum = grid_scatter.grid_reduce_add(g.float().abs(), cells, nc, plain=True)
+    cnt = grid_scatter.grid_reduce_add(torch.ones_like(g, dtype=torch.float32),
+                                       cells, nc, plain=True)
+    torch.cuda.synchronize()
+    tol = 2 * cnt * 2.0**-24 * absum
+    if dtype == torch.bfloat16:
+        tol = tol + torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp(min=1e-30))) - 7)
+    assert got.dtype == dtype
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert bool((got[cnt == 0] == 0).all())
+
+
+def test_grid_gather_vjp_uses_k1_add(gen):
+    """grid_gather's backward launches K1-add once and matches the plain
+    backward within the fp32 sum-order bound."""
+    cells = _sorted_cells(gen, 2, 4096, 512)
+    grid = torch.randn(2, 512, 16, generator=gen, device="cuda")
+    ct = torch.randn(2, 4096, 16, generator=gen, device="cuda")
+    grads = []
+    for plain in (False, True):
+        x = grid.clone().requires_grad_()
+        before = kernels.launches["grid_reduce_add"]
+        (grid_scatter.grid_gather(x, cells, plain=plain) * ct).sum().backward()
+        assert kernels.launches["grid_reduce_add"] == before + (0 if plain else 1)
+        grads.append(x.grad)
+    absum = grid_scatter.grid_reduce_add(ct.abs(), cells, 512, plain=True)
+    cnt = grid_scatter.grid_reduce_add(torch.ones_like(ct), cells, 512, plain=True)
+    torch.cuda.synchronize()
+    assert bool(((grads[0] - grads[1]).abs() <= 2 * cnt * 2.0**-24 * absum).all())
+
+
+def test_detector_train_step_kernels_vs_plain(gen):
+    """A small fp32 detector train step launches K1 once and K4 twice and
+    matches the plain step from the same seed (both fp32: the trainer turns
+    TF32 off itself); predict_step keeps the same boxes."""
+    from liso_tpu_torch.ops.boxes import Boxes
+    from liso_tpu_torch.train.detector_train import DetectorTrainer
+
+    pts = (torch.rand(2, 4096, 4, generator=gen, device="cuda") - 0.5) * 36
+    valid = torch.ones(2, 4096, dtype=torch.bool, device="cuda")
+    target = Boxes.empty(8, batch=(2,), device="cuda")
+    target.pos[:, :2] = torch.tensor([[5.0, 2.0, -1.0], [-8.0, -3.0, -1.0]],
+                                     device="cuda")
+    target.dims[:, :2] = torch.tensor([4.0, 2.0, 1.5], device="cuda")
+    target.valid[:, :2] = True
+    out, preds = [], []
+    for plain in (False, True):
+        tr = DetectorTrainer(BevSetup((40.0, 40.0), (64, 64)), max_lr=1e-3,
+                             total_steps=100, device="cuda")
+        kernels.reset_launches()
+        out.append(tr.train_step(pts, valid, target, plain=plain))
+        want = {k: 0 for k in kernels.launches}
+        if not plain:
+            want.update(grid_scatter_max_occ=1, grid_gather=2)
+        assert kernels.launches == want
+        preds.append(tr.predict_step(pts, valid, plain=plain))
+    for k in ("loss/total", "grad_norm"):
+        torch.testing.assert_close(out[0][k], out[1][k], rtol=1e-4, atol=0)
+    assert torch.equal(preds[0].valid, preds[1].valid)
+    torch.testing.assert_close(preds[0].pos, preds[1].pos, rtol=1e-4, atol=1e-4)

@@ -1,5 +1,6 @@
-"""The plain versions of kernels K4 (grid_gather) and K3
-(grid_reduce_add_c1), and the scatter-max VJP built on K4
+"""The plain versions of kernels K4 (grid_gather), K3
+(grid_reduce_add_c1) and K1-add (grid_reduce_add), the scatter-max VJP
+built on K4 and the grid_gather VJP built on K1-add
 (liso_tpu_torch/ops/grid_scatter.py), against liso_tpu's Pallas kernels in
 interpret mode (liso_tpu/ops/grid_scatter_pallas.py). The CUDA kernels are
 held to these plain versions on the card (tests/test_torch_cuda_kernels.py,
@@ -100,3 +101,72 @@ def test_grid_reduce_add_c1_matches_pallas(rows, n, res):
     assert (got[:, res:] == 0).all()
     if rows == 3:
         assert (got[2] == 0).all()
+
+
+def _crowded_cells(rng, b, n, nc):
+    """Ascending ids with half of the points in 40 cells (so cells sum
+    many rows), drop-bucket ids nc .. nc + 23 (inside the Pallas grid's
+    pad rows: 1000 cells pad to a 1024-cell tile) and the int32-max pad."""
+    cells = np.where(rng.rand(b, n) < 0.5, rng.randint(0, 40, (b, n)),
+                     rng.randint(0, nc + 24, (b, n))).astype(np.int32)
+    cells[:, -5:] = IMAX
+    return np.sort(cells, -1)
+
+
+@pytest.mark.parametrize("c", [2, 8, 64])
+def test_grid_reduce_add_matches_pallas(c):
+    """K1-add's plain version vs _grid_reduce_impl(..., "add",
+    interpret=True) at C > 1, fp32, 1000 cells (not a multiple of the
+    Pallas tile): per-cell sums in other orders, within the fp32
+    sum-order bound 2 n 2^-24 sum |v| of each cell. Empty and dropped
+    cells read exactly 0."""
+    rng = np.random.RandomState(c)
+    b, n, nc = 2, 1024, 1000
+    cells = _crowded_cells(rng, b, n, nc)
+    g = rng.randn(b, n, c).astype(np.float32)
+    want = np.asarray(jgs._grid_reduce_impl(
+        jnp.asarray(g), jnp.asarray(cells), nc, "add", interpret=True))
+    got = tgs.grid_reduce_add(_t(g), _t(cells), nc).numpy()
+    assert got.shape == want.shape == (b, nc, c)
+    absum = tgs.grid_reduce_add(_t(np.abs(g)), _t(cells), nc).numpy()
+    cnt = tgs.grid_reduce_add(_t(np.ones_like(g)), _t(cells), nc).numpy()
+    assert (np.abs(got - want) <= 2 * cnt * 2.0**-24 * absum).all()
+    assert cnt.max() > 10 and (got[cnt == 0] == 0).all()
+    assert (want[cnt == 0] == 0).all()
+
+
+def test_grid_gather_vjp_matches_pallas_vjp():
+    """The port's grid_gather autograd (backward: grid_reduce_add) vs
+    jax.vjp of grid_gather(..., interpret=True), whose VJP is
+    _grid_reduce_impl(..., "add"): forward bitwise, grid cotangent within
+    1e-5 of its norm (fp32 sums in other orders)."""
+    rng = np.random.RandomState(11)
+    b, n, nc, c = 2, 1024, 1000, 16
+    cells = _crowded_cells(rng, b, n, nc)
+    grid = rng.randn(b, nc, c).astype(np.float32)
+    ct = rng.randn(b, n, c).astype(np.float32)
+    want, vjp = jax.vjp(
+        lambda x: jgs.grid_gather(x, jnp.asarray(cells), True), jnp.asarray(grid))
+    (want_dg,) = vjp(jnp.asarray(ct))
+    tg = _t(grid).requires_grad_()
+    got = tgs.grid_gather(tg, _t(cells))
+    (got * _t(ct)).sum().backward()
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    err = np.linalg.norm(tg.grad.numpy() - np.asarray(want_dg))
+    assert err <= 1e-5 * np.linalg.norm(np.asarray(want_dg)), err
+    assert (tg.grad.numpy() != 0).sum(-1).astype(bool).sum() > 500
+
+
+def test_grid_gather_with_gradient_needs_ascending_cells():
+    """The backward sums each cell's rows as one range, so a differentiable
+    gather refuses unsorted ids; a gather without gradient takes them."""
+    rng = np.random.RandomState(12)
+    cells = _t(rng.permutation(_crowded_cells(rng, 2, 256, 100)[0])[None])
+    grid = torch.randn(1, 100, 8)
+    want = tgs.grid_gather_plain(grid, cells)
+    assert torch.equal(tgs.grid_gather(grid, cells), want)
+    with torch.no_grad():
+        assert torch.equal(tgs.grid_gather(grid.requires_grad_(), cells), want)
+    with pytest.raises(ValueError, match="ascending"):
+        tgs.grid_gather(grid, cells)
+    tgs.grid_gather(grid, torch.sort(cells, -1).values).sum().backward()

@@ -46,6 +46,9 @@ def test_package_imports_with_jax_blocked():
         "    sys.modules[m] = None\n"
         "import liso_tpu_torch.serve, liso_tpu_torch.weights\n"
         "import liso_tpu_torch.train.slim_train\n"
+        "import liso_tpu_torch.train.detector_train\n"
+        "import liso_tpu_torch.data.centermaps, liso_tpu_torch.ops.nms\n"
+        "import liso_tpu_torch.losses.centerpoint_loss\n"
         "import liso_tpu_torch.kernels\n"
         "print('ok')\n"
     )
@@ -77,6 +80,50 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert all(p.device.type == "cpu" for p in trainer.model.parameters())
 
 
+def test_detector_trainer_refuses_cpu_fallback(monkeypatch):
+    from liso_tpu_torch.ops.bev import BevSetup
+    from liso_tpu_torch.train.detector_train import DetectorTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bev = BevSetup((40.0, 40.0), (32, 32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DetectorTrainer(bev)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DetectorTrainer(bev, device="cuda")
+    trainer = DetectorTrainer(bev, device="cpu")
+    assert all(p.device.type == "cpu" for p in trainer.model.parameters())
+    with pytest.raises(NotImplementedError):
+        DetectorTrainer(bev, network="transfusion", device="cpu")
+
+
+def test_detector_steps_pin_fp32(monkeypatch):
+    """train_step and predict_step run with TF32 off whatever the caller
+    set, and put the caller's settings back."""
+    from liso_tpu_torch.ops.bev import BevSetup
+    from liso_tpu_torch.ops.boxes import Boxes
+    from liso_tpu_torch.train.detector_train import DetectorTrainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    trainer = DetectorTrainer(BevSetup((40.0, 40.0), (32, 32)), device="cpu")
+    seen, forward = [], trainer.model.forward
+
+    def spy(*args, **kw):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return forward(*args, **kw)
+
+    monkeypatch.setattr(trainer.model, "forward", spy)
+    g = torch.Generator().manual_seed(0)
+    pts = (torch.rand(2, 256, 4, generator=g) - 0.5) * 36
+    valid = torch.ones(2, 256, dtype=torch.bool)
+    trainer.train_step(pts, valid, Boxes.empty(4, batch=(2,)))
+    trainer.predict_step(pts, valid)
+    assert seen == [(False, False)] * 2
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+
+
 def test_kernels_build_lazily():
     """Importing the kernel module builds and loads nothing."""
     from liso_tpu_torch import kernels
@@ -85,4 +132,5 @@ def test_kernels_build_lazily():
     assert set(kernels.launches) == {
         "grid_scatter_max_occ", "corr_window_fwd", "grid_gather",
         "grid_reduce_add_c1", "corr_window_bwd", "knn_banded",
+        "grid_reduce_add",
     }

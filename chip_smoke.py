@@ -11,12 +11,17 @@ Phases, each printing JSON lines:
                path's (grid 512, 32768 points, batch 8, bf16), K1 bitwise,
                K2 within one bf16 ulp plus the fp32 sum-order slack of a
                cancelling dot (corr_fused.sum_order_slack), out-of-range
-               taps exactly 0; K3-K6 at the SLIM train step's (grid 920 over
-               120 m, 65536 points, batch 1, 6 iterations): K4 bitwise, K3
-               and K5 within their fp32 sum-order bounds, K6 within its
-               approximation contract (knn_banded.contract_report); kernel,
-               plain and library times (CUDA events, median of 20 calls)
-               and the bound;
+               taps exactly 0; K1 and K3-K6 at the SLIM train step's (grid
+               920 over 120 m, 65536 points, batch 1, 6 iterations): K1 and
+               K4 bitwise, K3 (uniform and skewed bins) and K5 within their
+               fp32 sum-order bounds, K6 within its approximation contract
+               (knn_banded.contract_report); kernel, plain and library
+               times (CUDA events, median of 20 calls), for K1 and K3 also
+               the kernel alone (torch.profiler, mean of 20 launches) and
+               the wrapper's enqueue time (host_ms), and the bound. K1's and
+               K3's library calls allocate a zeroed grid each time, as the
+               kernels return a fresh one (the reused, pre-zeroed grid's
+               time is kept as library_ms_prezeroed);
   4. path    - the serving path at full width with seeded random weights:
                fused_forward, then an encode and 12 chained fused_streaming
                steps, with every launch count reset just before and read
@@ -29,7 +34,9 @@ Phases, each printing JSON lines:
                and the JAX train benchmark's clouds: 2 warm-up steps, then
                8 timed steps (host clock, each awaited) with every launch
                count reset just before and read just after; one profiled
-               step (device time by kernel family); one step from the same
+               step (device time by kernel family, launches held to the
+               counts, searchsorted launches); K3 held and timed on the
+               histogram of one step at the timed state; one step from the same
                state through the plain versions, compared on loss and
                gradient norm; and K1-add (the grid_gather backward, which
                no path runs) against its plain version at the adjoint of
@@ -131,6 +138,56 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def kernel_only_ms(fn, kernel, reps=20):
+    """Mean device ms of one launch of the kernel whose name holds
+    `kernel`, over the launches torch.profiler records in `reps` calls of
+    `fn` (it may drop some of a run's launches): the kernel alone, without
+    the wrapper's host time that CUDA-event timing of a short call holds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if kernel in ev.key and ev.self_cpu_time_total == 0 and dev_us:
+            us += dev_us
+            count += ev.count
+    if count == 0:
+        fail(f"the profiler saw no launch of {kernel} in {reps} calls")
+    return us / count / 1e3
+
+
+def host_ms(fn, reps=20):
+    """Mean host ms to enqueue one call of `fn` (no synchronisation
+    between the calls): what a short call's event time holds besides the
+    kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return t * 1e3
+
+
+def searchsorted_stats(rows):
+    """Launches and device ms of torch.searchsorted in profile rows."""
+    hits = [(us, n) for us, n, key in rows if "searchsorted" in key]
+    return {"launches": sum(n for _, n in hits),
+            "device_ms": sum(us for us, _ in hits) / 1e3}
+
+
 def bf16_ulp(x):
     import torch
 
@@ -178,6 +235,10 @@ def check_scatter_max(gen, cells, nc, c, dtype):
              f"feats [{b}, {n}, {c}] {dtype_name(dtype)}")
     idx = cells.long().clamp(max=nc).unsqueeze(-1).expand(-1, -1, c)
     lib_out = torch.zeros(b, nc + 1, c, dtype=dtype, device="cuda")
+
+    def library():  # K1's function less occupancy: a fresh grid each call
+        out = torch.zeros(b, nc + 1, c, dtype=dtype, device="cuda")
+        return out.scatter_reduce_(1, idx, feats, "amax", include_self=False)
     # the kernel reads the features only of the points that reach the grid:
     # the rest (cut by pillarize's |z| < 5 m or outside the grid) sit in the
     # drop bucket past the last cell's range
@@ -195,12 +256,19 @@ def check_scatter_max(gen, cells, nc, c, dtype):
         "replaces": "liso_tpu/ops/grid_scatter_pallas.py:85",
         "max_abs_err": float((got_g.float() - want_g.float()).abs().max()),
         "ms": cuda_ms(lambda: grid_scatter.grid_scatter_max_occ(feats, cells, nc)),
+        "kernel_only_ms": kernel_only_ms(
+            lambda: grid_scatter.grid_scatter_max_occ(feats, cells, nc),
+            "grid_scatter_max_occ_kernel"),
+        "host_ms": host_ms(
+            lambda: grid_scatter.grid_scatter_max_occ(feats, cells, nc)),
         "plain_ms": cuda_ms(
             lambda: grid_scatter.grid_scatter_max_occ(feats, cells, nc, plain=True)
         ),
         "bound_ms": bms,
         "bound_by": bby,
-        "library_ms": cuda_ms(
+        "library_ms": cuda_ms(library),
+        "library_call": "torch.zeros [B, nc + 1, C] + scatter_reduce_ amax",
+        "library_ms_prezeroed": cuda_ms(
             lambda: lib_out.scatter_reduce_(1, idx, feats, "amax", include_self=False)
         ),
         "bytes": nbytes,
@@ -244,6 +312,14 @@ def check_gather(gen, cells, nc, c, dtype):
         "shape": f"grid [{b}, {nc}, {c}] {dtype_name(dtype)} at cells "
                  f"[{b}, {n}] -> [{b}, {n}, {c}]",
     }
+
+
+def shape_entry(r):
+    """The numbers of a kernel check at a second shape, for the kernels
+    line."""
+    return {k: r[k] for k in ("shape", "max_abs_err", "ms", "kernel_only_ms",
+                              "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "library_ms_prezeroed") if k in r}
 
 
 def phase_kernels():
@@ -393,8 +469,69 @@ def check_grid_reduce_add(gen, cells, nc, c, dtype):
     }
 
 
+def check_histogram(vals, bins, nb, layout):
+    """K3 against its plain version, within the fp32 sum-order bound
+    2 cnt 2^-24 sum|v| per bin, empty bins exactly 0; times beside
+    `index_add_` into a fresh zeroed histogram with a drop row (K3's
+    function) and into a reused one (`library_ms_prezeroed`)."""
+    import torch
+
+    from liso_tpu_torch.ops import grid_scatter
+
+    rows, n = vals.shape
+    got = grid_scatter.grid_reduce_add_c1(vals, bins, nb)
+    want = grid_scatter.grid_reduce_add_c1(vals, bins, nb, plain=True)
+    absum = grid_scatter.grid_reduce_add_c1(vals.abs(), bins, nb, plain=True)
+    cnt = grid_scatter.grid_reduce_add_c1(torch.ones_like(vals), bins, nb, plain=True)
+    torch.cuda.synchronize()
+    tol = 2 * cnt * 2.0**-24 * absum
+    err = (got - want).abs()
+    if not bool((err <= tol).all()):
+        fail(f"K3 grid_reduce_add_c1 differs from its plain version beyond the "
+             f"fp32 sum-order bound ({layout} bins)")
+    if not bool((got[cnt == 0] == 0).all()):
+        fail(f"K3 grid_reduce_add_c1: an empty bin is not 0 ({layout} bins)")
+    flat = (bins.long().clamp(max=nb)
+            + torch.arange(rows, device="cuda")[:, None] * (nb + 1)).reshape(-1)
+    lib_out = torch.zeros(rows * (nb + 1), device="cuda")
+
+    def library():  # K3's function: a fresh histogram each call
+        return torch.zeros(rows * (nb + 1), device="cuda").index_add_(
+            0, flat, vals.reshape(-1))
+    # the kernel's work follows the values in its busiest cluster of blocks,
+    # a span of 16384 bins (grid_reduce_add_c1.cu)
+    per_span = torch.nn.functional.pad(cnt, (0, -nb % 16384)).reshape(
+        rows, -1, 16384).sum(-1)
+    nbytes = vals.numel() * 4 + bins.numel() * 4 + got.numel() * 4
+    bms, bby = bound(nbytes, vals.numel(), FP32_FLOP_PER_S)
+    return {
+        "name": "grid_reduce_add_c1", "route": "cuda",
+        "source": "liso_tpu_torch/kernels/grid_reduce_add_c1.cu",
+        "replaces": "liso_tpu/ops/grid_scatter_pallas.py:176",
+        "max_abs_err": float(err.max()),
+        "max_err_over_bound": float((err / tol.clamp(min=1e-30)).max()),
+        "ms": cuda_ms(lambda: grid_scatter.grid_reduce_add_c1(vals, bins, nb)),
+        "kernel_only_ms": kernel_only_ms(
+            lambda: grid_scatter.grid_reduce_add_c1(vals, bins, nb),
+            "grid_reduce_add_c1_kernel"),
+        "host_ms": host_ms(lambda: grid_scatter.grid_reduce_add_c1(vals, bins, nb)),
+        "plain_ms": cuda_ms(lambda: grid_scatter.grid_reduce_add_c1(vals, bins, nb, plain=True)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(library),
+        "library_call": "torch.zeros + index_add_",
+        "library_ms_prezeroed": cuda_ms(
+            lambda: lib_out.index_add_(0, flat, vals.reshape(-1))),
+        "bytes": nbytes,
+        "largest_bin": int(cnt.max()),
+        "bins_over_32": int((cnt > 32).sum()),
+        "fullest_span": int(per_span.max()),
+        "shape": f"vals [{rows}, {n}] fp32, {layout} bins sorted -> "
+                 f"[{rows}, {nb}] fp32",
+    }
+
+
 def phase_train_kernels(trainer, batch):
-    """K3-K6 at the SLIM train step's shapes."""
+    """K1 and K3-K6 at the SLIM train step's shapes."""
     import torch
 
     from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
@@ -411,6 +548,10 @@ def phase_train_kernels(trainer, batch):
     nc = trainer.bev.num_cells
     cells = prepare_pillar_inputs(p0.pcl, p0.valid, trainer.bev).cell
     results.append(check_gather(g, cells, nc, 64, torch.bfloat16))
+    # K1 at this step's own call: the pillar encoder's bf16 scatter of
+    # C = 64 features into the 846400 cells (its own generator)
+    k1 = check_scatter_max(torch.Generator(device="cuda").manual_seed(5),
+                           cells, nc, 64, torch.bfloat16)
 
     # K1-add, the grid_gather backward: (a) the adjoint of K4's check, g
     # [1, 65536, 64] bf16 into the 846400 cells; (b) the decoder's gated
@@ -420,41 +561,29 @@ def phase_train_kernels(trainer, batch):
     k1add = [check_grid_reduce_add(g_add, cells, nc, c, dt)
              for c, dt in ((64, torch.bfloat16), (2, torch.float32))]
     results.append({**k1add[0], "second_shape": k1add[1]})
+    results.append(k1)
 
     # K3: the threshold histogram, 6 iterations x (fw + bw) points, 100000
-    # bins padded to 100352, bins sorted per row
+    # bins padded to 100352, bins sorted per row: dynamicness uniform over
+    # the bins, and skewed (every value in 8 bins and 1% dropped, as early
+    # in training, when the head's sigmoid of near-random weights crowds
+    # the dynamicness; its own generator: the later checks keep their
+    # inputs)
     rows, n, nb = T_ITERS, 2 * T_PTS, -(-100_000 // 2048) * 2048
     dyn = torch.rand(rows, n, generator=g, device="cuda")
     bins = torch.sort((dyn * 100_000).int().clamp(0, 99_999), dim=-1).values
     vals = torch.randn(rows, n, generator=g, device="cuda")
-    got = grid_scatter.grid_reduce_add_c1(vals, bins, nb)
-    want = grid_scatter.grid_reduce_add_c1(vals, bins, nb, plain=True)
-    absum = grid_scatter.grid_reduce_add_c1(vals.abs(), bins, nb, plain=True)
-    cnt = grid_scatter.grid_reduce_add_c1(torch.ones_like(vals), bins, nb, plain=True)
-    torch.cuda.synchronize()
-    tol = 2 * cnt * 2.0**-24 * absum
-    if not bool(((got - want).abs() <= tol).all()):
-        fail("K3 grid_reduce_add_c1 differs from its plain version beyond the "
-             "fp32 sum-order bound")
-    flat = (bins.long() + torch.arange(rows, device="cuda")[:, None] * (nb + 1)).reshape(-1)
-    lib_out = torch.zeros(rows * (nb + 1), device="cuda")
-    nbytes = vals.numel() * 4 + bins.numel() * 4 + got.numel() * 4
-    bms, bby = bound(nbytes, vals.numel(), FP32_FLOP_PER_S)
-    results.append({
-        "name": "grid_reduce_add_c1", "route": "cuda",
-        "source": "liso_tpu_torch/kernels/grid_reduce_add_c1.cu",
-        "replaces": "liso_tpu/ops/grid_scatter_pallas.py:176",
-        "max_abs_err": float((got - want).abs().max()),
-        "max_err_over_bound": float(((got - want).abs() / tol.clamp(min=1e-30)).max()),
-        "ms": cuda_ms(lambda: grid_scatter.grid_reduce_add_c1(vals, bins, nb)),
-        "plain_ms": cuda_ms(lambda: grid_scatter.grid_reduce_add_c1(vals, bins, nb, plain=True)),
-        "bound_ms": bms, "bound_by": bby,
-        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, flat, vals.reshape(-1))),
-        "library_call": "index_add_",
-        "bytes": nbytes,
-        "shape": f"vals [{rows}, {n}] fp32, bins sorted -> [{rows}, {nb}] fp32",
-    })
-    del dyn, bins, vals, got, want, absum, cnt, flat, lib_out
+    k3 = check_histogram(vals, bins, nb, "uniform")
+    g_skew = torch.Generator(device="cuda").manual_seed(6)
+    hot = torch.randint(0, 100_000, (8,), generator=g_skew, device="cuda").int()
+    skew = hot[torch.randint(0, 8, (rows, n), generator=g_skew, device="cuda")]
+    skew[:, -n // 100:] = torch.iinfo(torch.int32).max
+    skew = torch.sort(skew, dim=-1).values
+    k3["skewed_layout"] = {
+        k: v for k, v in check_histogram(vals, skew, nb, "skewed").items()
+        if k not in ("name", "route", "source", "replaces")}
+    results.append(k3)
+    del dyn, bins, vals, skew
 
     # K5: one corr backward of the 115 x 115 coarse grid, C = 128, 4 levels,
     # f0 in bf16 as the bf16 train step saves it
@@ -550,6 +679,28 @@ def phase_train_kernels(trainer, batch):
         "shape": f"q [1, {18 * T_PTS}, 3], refs [1, {T_PTS}, 3] fp32 -> d, idx",
     })
     return results
+
+
+def step_histogram(trainer, batch):
+    """The threshold histogram's inputs in one SLIM train step: the sorted
+    values and bins that `models/slim.py:_histograms` hands K3."""
+    from liso_tpu_torch.models import slim
+
+    seen = []
+    k3 = slim.grid_reduce_add_c1
+
+    def keep(vals, bins, num_bins, plain=False):
+        seen.append((vals.clone(), bins.clone(), num_bins))
+        return k3(vals, bins, num_bins, plain)
+
+    slim.grid_reduce_add_c1 = keep
+    try:
+        trainer.train_step(batch)
+    finally:
+        slim.grid_reduce_add_c1 = k3
+    if len(seen) != 1:
+        fail(f"a SLIM train step built {len(seen)} histograms, expected 1")
+    return seen[0]
 
 
 def snapshot(trainer, names):
@@ -658,12 +809,23 @@ def phase_train(kernels):
         fail("parameters not finite after the train steps")
 
     snap = snapshot(trainer, ("nu", "step", "movavg"))
+    # K3 on the step's own histogram at the timed state
+    k3_step = check_histogram(*step_histogram(trainer, batch), "SLIM step")
+    restore(trainer, snap)
+    for r in kres:
+        if r["name"] == "grid_reduce_add_c1":
+            r["slim_step_layout"] = {
+                k: v for k, v in k3_step.items()
+                if k not in ("name", "route", "source", "replaces")}
     # two profiled steps, each in its own profiler session: one call's
     # profile once reported every kernel at half its duration, and a second
     # sample shows such a session up
     profiled = [profile_window(lambda: trainer.train_step(batch))
                 for _ in range(2)]
     counts, dev_ms, rows, host_rows = profiled[0]
+    if counts != {**{k: 0 for k in launches}, **per_step}:
+        fail(f"profiler saw launches {counts} in a SLIM train step, "
+             f"expected {per_step}")
     restore(trainer, snap)
     mk = trainer.train_step(batch)
     restore(trainer, snap)
@@ -692,6 +854,7 @@ def phase_train(kernels):
         "peak_memory_gb": peak_gb,
         "profiled_step": {"launches": counts, "device_ms": dev_ms,
                           "device_ms_second_session": profiled[1][1],
+                          "searchsorted": searchsorted_stats(rows),
                           "device_ms_by_family": families(rows)},
         "kernel_vs_plain": cmp,
         "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
@@ -851,6 +1014,7 @@ def phase_detect_train(kernels):
         "profiled_step": {"launches": counts, "device_ms": dev_ms,
                           "device_ms_second_session": profiled[1][1],
                           "device_busy_share": dev_ms / statistics.median(step_ms),
+                          "searchsorted": searchsorted_stats(rows),
                           "device_ms_by_family": families(rows)},
         "kernel_vs_plain": cmp,
         "tolerance": {"loss_rtol": DET_LOSS_RTOL,
@@ -1028,8 +1192,9 @@ def main() -> int:
     profiled = {
         name: {"launches": counts, "device_ms": dev_ms,
                "host_ms_unprofiled": host_ms[name],
-               "device_busy_share": dev_ms / host_ms[name]}
-        for name, (counts, dev_ms, _, _) in profiles.items()
+               "device_busy_share": dev_ms / host_ms[name],
+               "searchsorted": searchsorted_stats(rows)}
+        for name, (counts, dev_ms, rows, _) in profiles.items()
     }
 
     ref = run_path(serve, slim, det, frames, valid, plain=True)
@@ -1064,8 +1229,13 @@ def main() -> int:
     tkres, train, (train_rows, train_host_rows) = phase_train(kernels)
     emit(train)
     for r in tkres:
-        emit({"phase": "kernel", **r})
-    kres += tkres
+        emit({"phase": "kernel", "path": "train", **r})
+    by_name = {r["name"]: r for r in kres}
+    for r in tkres:  # K1 at the train step's shape goes beside its serving entry
+        if r["name"] in by_name:
+            by_name[r["name"]]["train_shape"] = shape_entry(r)
+        else:
+            kres.append(r)
     torch.cuda.empty_cache()
     # back to PyTorch's default (cuDNN may take TF32 for fp32 convolutions):
     # DetectorTrainer turns TF32 off itself while a step runs
@@ -1076,9 +1246,7 @@ def main() -> int:
         emit({"phase": "kernel", "path": "detect_train", **r})
     by_name = {r["name"]: r for r in kres}
     for r in dkres:
-        by_name[r["name"]]["detect_train_shape"] = {
-            k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                              "bound_ms", "bound_by", "library_ms")}
+        by_name[r["name"]]["detect_train_shape"] = shape_entry(r)
     for r in kres:
         r["launches_by_path"] = {"serve": launches[r["name"]],
                                  "train": train["launches"][r["name"]],
@@ -1125,7 +1293,9 @@ def main() -> int:
             f.write(f"{us:.1f}\t{count}\t{key}\n")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "detect_train_shape")
+            "bound_by", "library_ms", "kernel_only_ms", "host_ms",
+            "library_ms_prezeroed", "train_shape", "detect_train_shape",
+            "skewed_layout", "slim_step_layout")
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -2,8 +2,9 @@
 
 Each `*.cu` source in this directory is compiled by `nvcc` for Hopper
 (`sm_90a`) into a shared library with a plain C interface and loaded with
-ctypes. A library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and a stale build is never loaded. Builds go to
+ctypes. A library's file name carries a hash of its source, of every
+`*.cuh` header here and of the flags, so an edited source or header is
+rebuilt and a stale build is never loaded. Builds go to
 `_build/` beside the sources (listed in .gitignore). Nothing is compiled or
 loaded when this module is imported: the CPU path never needs `nvcc`.
 
@@ -40,7 +41,7 @@ _I = ctypes.c_int
 SOURCES = {
     "grid_scatter_max": (
         "grid_scatter_max_occ",
-        # feats, starts, grid, occ, B, N, C, num_cells, is_bf16, stream
+        # feats, cells, grid, occ, B, N, C, num_cells, is_bf16, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
     "corr_window_fwd": (
@@ -55,7 +56,7 @@ SOURCES = {
     ),
     "grid_reduce_add_c1": (
         "grid_reduce_add_c1",
-        # vals, starts, out, rows, N, num_bins, stream
+        # vals, bins, out, rows, N, num_bins, stream
         [_P, _P, _P, _I, _I, _I, _P],
     ),
     "corr_window_bwd": (
@@ -81,6 +82,7 @@ SOURCES = {
 launches = {fn_name: 0 for fn_name, _ in SOURCES.values()}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -99,8 +101,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -145,14 +150,16 @@ def ptxas_report(name: str) -> str:
 
 def function(name: str):
     """The C entry point of source `name`, building and loading it first
-    if needed."""
-    if name not in _loaded:
+    if needed; typed once and kept, so a launch pays one dict lookup."""
+    fn = _functions.get(name)
+    if fn is None:
         build([name])
-        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
-    fn_name, argtypes = SOURCES[name]
-    fn = getattr(_loaded[name], fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        fn_name, argtypes = SOURCES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name], _functions[name] = lib, fn
     return fn
 
 

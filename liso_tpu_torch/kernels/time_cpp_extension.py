@@ -34,9 +34,9 @@ extern "C" int corr_window_fwd(const void*, const void*, const void*, void*,
                                void*);
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("grid_scatter_max_occ",
-        [](int64_t f, int64_t s, int64_t g, int64_t o, int b, int n, int c,
+        [](int64_t f, int64_t ids, int64_t g, int64_t o, int b, int n, int c,
            int nc, int bf16, int64_t stream) {
-          return grid_scatter_max_occ((const void*)f, (const void*)s,
+          return grid_scatter_max_occ((const void*)f, (const void*)ids,
                                       (void*)g, (void*)o, b, n, c, nc, bf16,
                                       (void*)stream);
         });

@@ -43,7 +43,9 @@ def _check_cuda(*tensors):
 def _cell_starts(cells: torch.Tensor, num_cells: int) -> torch.Tensor:
     """[B, num_cells + 1] int32 ranges of ascending ids [B, N]: the points
     of cell k are [starts[k], starts[k+1]); ids >= num_cells (the drop
-    bucket, int32 max included) sort past the last range."""
+    bucket, int32 max included) sort past the last range. Only K1-add
+    takes these; K1 and K3 find each tile's ranges inside the kernel
+    (`kernels/cell_ranges.cuh`)."""
     cells = cells.to(torch.int32).contiguous()
     bounds = torch.arange(
         num_cells + 1, dtype=torch.int32, device=cells.device
@@ -81,13 +83,12 @@ def _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain):
     feats = feats.contiguous()
     if feats.data_ptr() % (4 * feats.element_size()):
         raise ValueError("feats must be aligned to 4 elements (vector loads)")
-    starts = _cell_starts(cells, num_cells)
-    grid = torch.empty(b, num_cells, c, dtype=feats.dtype, device=feats.device)
-    occ = torch.empty(b, num_cells, 1, dtype=torch.float32, device=feats.device)
-    fn = kernels.function("grid_scatter_max")
+    cells = cells.to(torch.int32).contiguous()
+    grid = torch.empty((b, num_cells, c), dtype=feats.dtype, device=feats.device)
+    occ = torch.empty((b, num_cells, 1), dtype=torch.float32, device=feats.device)
     kernels.check(
-        fn(
-            feats.data_ptr(), starts.data_ptr(), grid.data_ptr(),
+        kernels.function("grid_scatter_max")(
+            feats.data_ptr(), cells.data_ptr(), grid.data_ptr(),
             occ.data_ptr(), b, n, c, num_cells,
             int(feats.dtype == torch.bfloat16),
             torch.cuda.current_stream(feats.device).cuda_stream,
@@ -125,7 +126,10 @@ def grid_scatter_max_occ(
     """Scatter-max of cell-sorted point features into a dense grid, with
     occupancy. Cell ids MUST be ascending per sample. Same contract as
     `grid_scatter_max_occ_plain`; differentiable in `feats` (TPU VJP, see
-    the module docstring)."""
+    the module docstring). Without a gradient to track it skips the
+    autograd Function, and with it the Function's host cost."""
+    if not (feats.requires_grad and torch.is_grad_enabled()):
+        return _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain)
     return _GridScatterMaxOcc.apply(feats, cells, num_cells, plain)
 
 
@@ -262,12 +266,11 @@ def grid_reduce_add_c1(vals: torch.Tensor, bins: torch.Tensor, num_bins: int,
         raise ValueError(f"vals {tuple(vals.shape)}, bins {tuple(bins.shape)}")
     r, n = vals.shape
     vals = vals.to(torch.float32).contiguous()
-    starts = _cell_starts(bins, num_bins)
-    out = torch.empty(r, num_bins, dtype=torch.float32, device=vals.device)
-    fn = kernels.function("grid_reduce_add_c1")
+    bins = bins.to(torch.int32).contiguous()
+    out = torch.empty((r, num_bins), dtype=torch.float32, device=vals.device)
     kernels.check(
-        fn(
-            vals.data_ptr(), starts.data_ptr(), out.data_ptr(), r, n, num_bins,
+        kernels.function("grid_reduce_add_c1")(
+            vals.data_ptr(), bins.data_ptr(), out.data_ptr(), r, n, num_bins,
             torch.cuda.current_stream(vals.device).cuda_stream,
         ),
         "grid_reduce_add_c1",

@@ -2,14 +2,19 @@
 
 Marked `cuda`: these tests need an NVIDIA GPU with the CUDA toolkit (nvcc)
 and skip elsewhere. Run them on a GPU machine with
-    python -m pytest tests/test_torch_cuda_kernels.py -q
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+K1 and K3 are also held on the edge layouts of tests/torch_grid_layouts.py
+(one cell holding every point, a run across a tile edge, the first and last
+cells, an all-dropped sample, N below the tile, 8-byte rows).
 """
+import numpy as np
 import pytest
 import torch
 
 from liso_tpu_torch import kernels, serve
 from liso_tpu_torch.ops import corr_fused, grid_scatter, knn_banded
 from liso_tpu_torch.ops.bev import BevSetup
+from torch_grid_layouts import cell_layout
 
 pytestmark = pytest.mark.cuda
 
@@ -23,19 +28,34 @@ def gen():
 
 
 @pytest.mark.parametrize(
-    "b,n,nc,c,dtype",
+    "b,n,nc,c,dtype,layout",
     [
-        (2, 4096, 128 * 128, 128, torch.bfloat16),
-        (2, 4096, 1000, 64, torch.float32),
-        (3, 2048, 64, 16, torch.bfloat16),  # many points per cell, ties
+        (2, 4096, 128 * 128, 128, torch.bfloat16, None),
+        (2, 4096, 1000, 64, torch.float32, None),
+        (3, 2048, 64, 16, torch.bfloat16, None),  # many points per cell, ties
+        # edge layouts (tests/torch_grid_layouts.py); the kernel's tile is
+        # 1024 cells, and a cell of more than 32 points is taken by the
+        # whole block
+        (2, 32768, 4096, 64, torch.float32, "one_cell"),
+        (2, 4096, 5000, 128, torch.bfloat16, "tile_edge"),
+        (2, 4096, 3000, 12, torch.bfloat16, "uniform"),  # 24-byte rows
+        (2, 4096, 3000, 12, torch.float32, "uniform"),  # 3 vectors a row
+        (3, 2048, 2048, 4, torch.bfloat16, "all_dropped"),  # 8-byte rows
+        (2, 2048, 2500, 4, torch.float32, "end_cells"),
+        (1, 100, 128 * 128, 64, torch.bfloat16, "uniform"),  # N < tile
+        (2, 8192, 846400, 64, torch.bfloat16, "skewed"),
     ],
 )
-def test_grid_scatter_max_occ_bitwise(gen, b, n, nc, c, dtype):
-    cells = torch.randint(0, nc + 8, (b, n), generator=gen, device="cuda")
-    cells = torch.sort(cells.int(), dim=-1).values
-    cells[cells >= nc] = torch.iinfo(torch.int32).max
-    if b > 1:
-        cells[-1] = nc  # an all-dropped sample
+def test_grid_scatter_max_occ_bitwise(gen, b, n, nc, c, dtype, layout):
+    if layout is None:
+        cells = torch.randint(0, nc + 8, (b, n), generator=gen, device="cuda")
+        cells = torch.sort(cells.int(), dim=-1).values
+        cells[cells >= nc] = torch.iinfo(torch.int32).max
+        if b > 1:
+            cells[-1] = nc  # an all-dropped sample
+    else:
+        cells = torch.from_numpy(cell_layout(
+            layout, np.random.RandomState(n + c), b, n, nc)).cuda()
     feats = torch.randn(b, n, c, generator=gen, device="cuda").to(dtype)
     if c == 16:
         feats = torch.round(feats * 2) / 2
@@ -117,19 +137,44 @@ def test_scatter_max_vjp_bitwise(gen):
     assert torch.equal(grads[0], grads[1])
 
 
-def test_grid_reduce_add_c1_within_sum_order_bound(gen):
-    r, n, nb = 6, 131072, 100352
-    bins = torch.randint(0, 100000, (r, n), generator=gen, device="cuda").int()
-    bins[:, :500] = 7
-    bins[:, -100:] = torch.iinfo(torch.int32).max
-    bins = torch.sort(bins, dim=-1).values
+@pytest.mark.parametrize(
+    "r,n,nb,layout",
+    [
+        (6, 131072, 100352, None),  # the train step's histogram
+        # edge layouts (tests/torch_grid_layouts.py); a cluster of 8 blocks
+        # owns 16384 bins and splits their values evenly, each block walks
+        # its share in chunks of 4096 values, 16 a thread, and a bin's
+        # values may cross a thread's, a chunk's and a block's edge
+        (6, 131072, 100352, "one_cell"),  # every value in one bin
+        (6, 131072, 100352, "skewed"),  # every value in <= 8 bins
+        # tens to hundreds of values a bin over a few tiles, as in the
+        # SLIM step's histogram
+        (6, 131072, 100352, "crowded"),
+        (3, 8192, 100352, "end_cells"),  # bins 0 and num_bins - 1
+        (3, 8192, 5000, "all_dropped"),  # the last row is all dropped
+        (1, 4096, 2048, "uniform"),  # one row
+        (2, 30000, 40000, "uniform"),  # three clusters, the last one short
+    ],
+)
+def test_grid_reduce_add_c1_within_sum_order_bound(gen, r, n, nb, layout):
+    if layout is None:
+        bins = torch.randint(0, 100000, (r, n), generator=gen, device="cuda").int()
+        bins[:, :500] = 7
+        bins[:, -100:] = torch.iinfo(torch.int32).max
+        bins = torch.sort(bins, dim=-1).values
+    else:
+        bins = torch.from_numpy(cell_layout(
+            layout, np.random.RandomState(r + n), r, n, nb)).cuda()
     vals = torch.randn(r, n, generator=gen, device="cuda")
+    before = kernels.launches["grid_reduce_add_c1"]
     got = grid_scatter.grid_reduce_add_c1(vals, bins, nb)
+    assert kernels.launches["grid_reduce_add_c1"] == before + 1
     want = grid_scatter.grid_reduce_add_c1(vals, bins, nb, plain=True)
     absum = grid_scatter.grid_reduce_add_c1(vals.abs(), bins, nb, plain=True)
     cnt = grid_scatter.grid_reduce_add_c1(torch.ones_like(vals), bins, nb, plain=True)
     torch.cuda.synchronize()
     assert bool(((got - want).abs() <= 2 * cnt * 2.0**-24 * absum).all())
+    assert bool((got[cnt == 0] == 0).all())
 
 
 @pytest.mark.parametrize("h,c", [(8, 32), (16, 128), (115, 128)])
@@ -263,7 +308,9 @@ def test_grid_gather_vjp_uses_k1_add(gen):
 def test_detector_train_step_kernels_vs_plain(gen):
     """A small fp32 detector train step launches K1 once and K4 twice and
     matches the plain step from the same seed (both fp32: the trainer turns
-    TF32 off itself); predict_step keeps the same boxes."""
+    TF32 off itself); predict_step keeps the same boxes. cuDNN runs its
+    deterministic algorithms here, so that the two trainers' states differ
+    only where K1 and K4 differ from their plain versions (they do not)."""
     from liso_tpu_torch.ops.boxes import Boxes
     from liso_tpu_torch.train.detector_train import DetectorTrainer
 
@@ -274,17 +321,22 @@ def test_detector_train_step_kernels_vs_plain(gen):
                                      device="cuda")
     target.dims[:, :2] = torch.tensor([4.0, 2.0, 1.5], device="cuda")
     target.valid[:, :2] = True
-    out, preds = [], []
-    for plain in (False, True):
-        tr = DetectorTrainer(BevSetup((40.0, 40.0), (64, 64)), max_lr=1e-3,
-                             total_steps=100, device="cuda")
-        kernels.reset_launches()
-        out.append(tr.train_step(pts, valid, target, plain=plain))
-        want = {k: 0 for k in kernels.launches}
-        if not plain:
-            want.update(grid_scatter_max_occ=1, grid_gather=2)
-        assert kernels.launches == want
-        preds.append(tr.predict_step(pts, valid, plain=plain))
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        out, preds = [], []
+        for plain in (False, True):
+            tr = DetectorTrainer(BevSetup((40.0, 40.0), (64, 64)), max_lr=1e-3,
+                                 total_steps=100, device="cuda")
+            kernels.reset_launches()
+            out.append(tr.train_step(pts, valid, target, plain=plain))
+            want = {k: 0 for k in kernels.launches}
+            if not plain:
+                want.update(grid_scatter_max_occ=1, grid_gather=2)
+            assert kernels.launches == want
+            preds.append(tr.predict_step(pts, valid, plain=plain))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     for k in ("loss/total", "grad_norm"):
         torch.testing.assert_close(out[0][k], out[1][k], rtol=1e-4, atol=0)
     assert torch.equal(preds[0].valid, preds[1].valid)

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from liso_tpu.ops import grid_scatter_pallas as jgs
 from liso_tpu_torch.ops import grid_scatter as tgs
+from torch_grid_layouts import cell_layout
 
 torch.set_num_threads(1)
 IMAX = np.iinfo(np.int32).max
@@ -101,6 +102,34 @@ def test_grid_reduce_add_c1_matches_pallas(rows, n, res):
     assert (got[:, res:] == 0).all()
     if rows == 3:
         assert (got[2] == 0).all()
+
+
+@pytest.mark.parametrize("layout,rows", [
+    ("one_cell", 2), ("end_cells", 2), ("all_dropped", 3), ("uniform", 1),
+    ("skewed", 2), ("crowded", 2)])
+def test_grid_reduce_add_c1_matches_pallas_edge_layouts(layout, rows):
+    """K3's plain version vs the Pallas C = 1 kernel (interpret mode) on the
+    edge layouts the card tests hold the CUDA kernel to
+    (tests/torch_grid_layouts.py): every value in one bin, bins 0 and
+    num_bins - 1, an all-dropped row, one row, every value in 8 bins, bins
+    crowded near the middle. Within the fp32 sum-order bound; empty bins
+    exactly 0."""
+    n, nb = 2048, 4096
+    rng = np.random.RandomState(rows + len(layout))
+    bins = cell_layout(layout, rng, rows, n, nb)
+    vals = rng.randn(rows, n).astype(np.float32)
+    want = np.asarray(jgs.grid_reduce(
+        jnp.asarray(vals[..., None]), jnp.asarray(bins), nb, "add", True
+    ))[..., 0]
+    got = tgs.grid_reduce_add_c1(_t(vals), _t(bins), nb).numpy()
+    absum = tgs.grid_reduce_add_c1(_t(np.abs(vals)), _t(bins), nb).numpy()
+    cnt = tgs.grid_reduce_add_c1(_t(np.ones_like(vals)), _t(bins), nb).numpy()
+    assert (np.abs(got - want) <= 2 * cnt * 2.0**-24 * absum).all()
+    assert (got[cnt == 0] == 0).all() and (want[cnt == 0] == 0).all()
+    if layout == "end_cells":
+        assert (cnt[:, 0] > 0).all() and (cnt[:, -1] > 0).all()
+    if layout == "all_dropped":
+        assert cnt[-1].sum() == 0
 
 
 def _crowded_cells(rng, b, n, nc):

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from liso_tpu.ops.grid_scatter_pallas import grid_reduce_with_occ
 from liso_tpu_torch.ops.grid_scatter import grid_scatter_max_occ
+from torch_grid_layouts import cell_layout
 
 torch.set_num_threads(1)
 I32MAX = np.iinfo(np.int32).max
@@ -70,3 +71,38 @@ def test_plain_matches_segment_max(name):
     )
     np.testing.assert_array_equal(got_g.numpy(), want)
     np.testing.assert_array_equal(got_o[..., 0].numpy(), (cnt > 0).astype(np.float32))
+
+
+# The edge layouts the card tests hold the CUDA kernel to
+# (tests/torch_grid_layouts.py), pinned here to the TPU function: cell
+# counts that are not a multiple of the 1024-cell tile, a run across a tile
+# edge, the first and last cells, N below the tile, C = 4 and 12.
+EDGE_CASES = [
+    ("one_cell", 2, 2048, 2048, 16),
+    ("tile_edge", 2, 1024, 2048, 16),
+    ("uniform", 2, 1024, 2500, 12),
+    ("end_cells", 2, 1024, 2500, 4),
+    ("all_dropped", 2, 512, 1024, 8),
+    ("uniform", 1, 100, 128 * 128, 4),
+    ("skewed", 2, 2048, 128 * 128, 16),
+]
+
+
+@pytest.mark.parametrize("layout,b,n,nc,c", EDGE_CASES)
+def test_plain_matches_pallas_interpret_edge_layouts(layout, b, n, nc, c):
+    rng = np.random.RandomState(n + nc + c)
+    cells = cell_layout(layout, rng, b, n, nc)
+    feats = rng.randn(b, n, c).astype(np.float32)
+    want_g, want_o = grid_reduce_with_occ(
+        jnp.asarray(feats), jnp.asarray(cells), nc, "max", True
+    )
+    got_g, got_o = grid_scatter_max_occ(
+        torch.from_numpy(feats), torch.from_numpy(cells), nc
+    )
+    np.testing.assert_array_equal(got_g.numpy(), np.asarray(want_g))
+    np.testing.assert_array_equal(got_o.numpy(), np.asarray(want_o))
+    occupied = int(got_o.sum())
+    if layout == "one_cell":
+        assert occupied == b
+    if layout == "all_dropped":
+        assert int(got_o[-1].sum()) == 0 and int(got_o[0].sum()) > 0

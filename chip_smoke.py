@@ -11,14 +11,16 @@ Phases, each printing JSON lines:
                path's (grid 512, 32768 points, batch 8, bf16), K1 bitwise,
                K2 within one bf16 ulp plus the fp32 sum-order slack of a
                cancelling dot (corr_fused.sum_order_slack), out-of-range
-               taps exactly 0; K1 and K3-K6 at the SLIM train step's (grid
-               920 over 120 m, 65536 points, batch 1, 6 iterations): K1 and
-               K4 bitwise, K3 (uniform and skewed bins) and K5 within their
+               taps exactly 0; K1, K3-K6 and the fused scatter-max VJP at
+               the SLIM train step's (grid 920 over 120 m, 65536 points,
+               batch 1, 6 iterations): K1, K4 and the VJP bitwise, K3
+               (uniform and skewed bins) and K5 within their
                fp32 sum-order bounds, K6 within its approximation contract
                (knn_banded.contract_report); kernel, plain and library
-               times (CUDA events, median of 20 calls), for K1 and K3 also
-               the kernel alone (torch.profiler, mean of 20 launches) and
-               the wrapper's enqueue time (host_ms), and the bound. K1's and
+               times (CUDA events, median of 20 calls), for K1, K3 and the
+               VJP also the kernel alone (torch.profiler, mean of 20
+               launches), for K1 and K3 the wrapper's enqueue time
+               (host_ms), and the bound. K1's and
                K3's library calls allocate a zeroed grid each time, as the
                kernels return a fresh one (the reused, pre-zeroed grid's
                time is kept as library_ms_prezeroed);
@@ -45,16 +47,19 @@ Phases, each printing JSON lines:
                (DetectorTrainer.train_step, fp32, AdamW + OneCycle) at grid
                512 over 100 m, batch 2, 32768 points per frame, 64 target
                slots, on the mining benchmark's synthetic drive: K1 (fp32,
-               C = 64) and K4 held bitwise to their plain versions on the
-               drive's cells and timed at this path's shapes; 2 warm-up
-               steps, then 8 timed steps with every launch count reset just
-               before and read just after; one profiled step; one step from
-               the same state through the plain versions (loss, gradient
-               norm); predict_step timed (median of 10) and its kept boxes
-               held to the plain run's.
+               C = 64), K4 and the scatter-max VJP held bitwise to their
+               plain versions on the drive's cells and timed at this path's
+               shapes; 2 warm-up steps, then 8 timed steps with every launch
+               count reset just before and read just after; one profiled
+               step; one step from the same state through the plain
+               versions (loss, gradient norm; cuDNN deterministic for both);
+               predict_step timed (median of 10) and its kept boxes held to
+               the plain run's.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Any failed check raises, exits non-zero and
-prints no result. Details go to chiprun_out/chip_smoke.json.
+{"ok": true, "device": {...}}. A failed check, or any exception, prints one
+line {"phase": "failed", "check": "<function>:<line>", "message": "..."}
+on stdout and exits non-zero with no result. Details go to
+chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -103,12 +109,18 @@ FLOW_ATOL = 0.05
 PROBS_ATOL = 1e-3
 
 
-def fail(msg: str):
-    raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str):
+    """Print which check failed (the calling function and line) as one JSON
+    line on stdout, then exit non-zero with the message on stderr."""
+    caller = sys._getframe(1)
+    emit({"phase": "failed",
+          "check": f"{caller.f_code.co_name}:{caller.f_lineno}",
+          "message": msg})
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
 def nvidia_smi() -> str:
@@ -311,6 +323,61 @@ def check_gather(gen, cells, nc, c, dtype):
         "bytes": nbytes, "points_in_grid": in_grid,
         "shape": f"grid [{b}, {nc}, {c}] {dtype_name(dtype)} at cells "
                  f"[{b}, {n}] -> [{b}, {n}, {c}]",
+    }
+
+
+def check_scatter_max_vjp(gen, cells, nc, c, dtype):
+    """The fused scatter-max VJP against its plain version (bitwise, as bit
+    patterns) at the given cells: features on a coarse lattice (ties that
+    all win), the grid from K1, a random cotangent."""
+    import torch
+
+    from liso_tpu_torch.ops import grid_scatter
+
+    b, n = cells.shape
+    feats = (torch.round(2 * torch.randn(b, n, c, generator=gen, device="cuda"))
+             / 2).to(dtype)
+    grid = grid_scatter.grid_scatter_max_occ(feats, cells, nc)[0]
+    g_grid = torch.randn(b, nc, c, generator=gen, device="cuda").to(dtype)
+    args = (feats, cells, grid, g_grid)
+    got = grid_scatter.scatter_max_vjp(*args)
+    want = grid_scatter.scatter_max_vjp(*args, plain=True)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(got.view(bits), want.view(bits)):
+        fail(f"scatter_max_vjp differs from its plain version at feats "
+             f"[{b}, {n}, {c}] {dtype_name(dtype)}")
+    idx = cells.long().clamp(max=nc - 1)[..., None].expand(-1, -1, c)
+    kept = (cells < nc)[..., None]
+
+    def library():  # two gathers, the drop mask, == and where
+        win = kept & (feats == torch.gather(grid, 1, idx))
+        return torch.where(win, torch.gather(g_grid, 1, idx), 0.0)
+    # read the cells, the features of the points in the grid and the grid
+    # and cotangent rows of their (distinct) cells; write dfeats
+    in_grid = int(kept.sum())
+    occupied = int((cells[:, :1] < nc).sum()) + int(
+        ((cells[:, 1:] != cells[:, :-1]) & (cells[:, 1:] < nc)).sum())
+    es = feats.element_size()
+    nbytes = (cells.numel() * 4 + (in_grid + 2 * occupied) * c * es
+              + got.numel() * es)
+    bms, bby = bound(nbytes, in_grid * c,
+                     BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+    return {
+        "name": "scatter_max_vjp", "route": "cuda",
+        "source": "liso_tpu_torch/kernels/scatter_max_vjp.cu",
+        "replaces": "liso_tpu/ops/grid_scatter_pallas.py:459",
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": cuda_ms(lambda: grid_scatter.scatter_max_vjp(*args)),
+        "kernel_only_ms": kernel_only_ms(
+            lambda: grid_scatter.scatter_max_vjp(*args), "scatter_max_vjp_kernel"),
+        "plain_ms": cuda_ms(lambda: grid_scatter.scatter_max_vjp(*args, plain=True)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(library),
+        "library_call": "two torch.gather, the drop mask, == and torch.where",
+        "bytes": nbytes, "points_in_grid": in_grid,
+        "shape": f"feats [{b}, {n}, {c}] {dtype_name(dtype)}, grid and g_grid "
+                 f"[{b}, {nc}, {c}] -> dfeats [{b}, {n}, {c}]",
     }
 
 
@@ -543,11 +610,16 @@ def phase_train_kernels(trainer, batch):
     sorted_batch, _ = trainer._sort_batch(batch)
     p0, p1 = sorted_batch.pcl_t0, sorted_batch.pcl_t1
 
-    # K4: the scatter-max VJP's gather, grid [1, 846400, 64] bf16 at the
-    # cell ids of frame 0 (drop bucket for the points outside a pillar)
+    # K4: the TPU VJP's gather (no path launches it now), grid [1, 846400,
+    # 64] bf16 at the cell ids of frame 0 (drop bucket for the points
+    # outside a pillar); the fused VJP at the same cells (its own
+    # generator: the later checks keep their inputs)
     nc = trainer.bev.num_cells
     cells = prepare_pillar_inputs(p0.pcl, p0.valid, trainer.bev).cell
     results.append(check_gather(g, cells, nc, 64, torch.bfloat16))
+    results.append(check_scatter_max_vjp(
+        torch.Generator(device="cuda").manual_seed(7), cells, nc, 64,
+        torch.bfloat16))
     # K1 at this step's own call: the pillar encoder's bf16 scatter of
     # C = 64 features into the 846400 cells (its own generator)
     k1 = check_scatter_max(torch.Generator(device="cuda").manual_seed(5),
@@ -733,6 +805,7 @@ FAMILIES = (
     ("K6 knn_banded", ("knn_banded",)),
     ("K1 grid_scatter_max_occ", ("grid_scatter_max",)),
     ("K4 grid_gather", ("grid_gather",)),
+    ("K4 scatter_max_vjp", ("scatter_max_vjp",)),
     ("K3 grid_reduce_add_c1", ("grid_reduce_add_c1",)),
     ("K1-add grid_reduce_add", ("grid_reduce_add_kernel",)),
     ("NCHW <-> NHWC layout transforms (cuDNN)", ("nchwToNhwc", "nhwcToNchw")),
@@ -794,12 +867,13 @@ def phase_train(kernels):
         losses.append(float(m["loss"]))
     launches = dict(kernels.launches)
     per_step = {"grid_scatter_max_occ": 2, "corr_window_fwd": 2 * T_ITERS,
-                "grid_gather": 4, "grid_reduce_add_c1": 1,
+                "scatter_max_vjp": 2, "grid_reduce_add_c1": 1,
                 "corr_window_bwd": 2 * T_ITERS, "knn_banded": 2}
     expect = {k: per_step.get(k, 0) * T_STEPS for k in launches}
     if launches != expect:
         fail(f"train step launches {launches}, expected {expect}")
-    for k in ("grid_reduce_add_c1", "grid_gather", "corr_window_bwd", "knn_banded"):
+    for k in ("grid_reduce_add_c1", "scatter_max_vjp", "corr_window_bwd",
+              "knn_banded"):
         if launches[k] == 0:
             fail(f"the train step did not launch {k}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -914,13 +988,14 @@ def phase_detect_train(kernels):
     trainer = DetectorTrainer(bev, max_lr=D_MAX_LR, total_steps=D_TOTAL_STEPS,
                               seed=0, device="cuda")
     pts, valid, target = drive_scene()
-    # K1 and K4 at this path's shapes, on the drive's real cells: the
-    # pillar encoder's fp32 scatter of C = 64 features and the gather of
-    # its backward
+    # K1, K4 and the fused VJP at this path's shapes, on the drive's real
+    # cells: the pillar encoder's fp32 scatter of C = 64 features, the TPU
+    # VJP's gather and the VJP the backward launches
     g = torch.Generator(device="cuda").manual_seed(4)
     cells = prepare_pillar_inputs(pts, valid, bev).cell
     kres = [check(g, cells, bev.num_cells, 64, torch.float32)
-            for check in (check_scatter_max, check_gather)]
+            for check in (check_scatter_max, check_gather,
+                          check_scatter_max_vjp)]
     for _ in range(T_WARMUP):
         trainer.train_step(pts, valid, target)
     torch.cuda.synchronize()
@@ -934,7 +1009,7 @@ def phase_detect_train(kernels):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss/total"]))
     launches = dict(kernels.launches)
-    per_step = {"grid_scatter_max_occ": 1, "grid_gather": 2}
+    per_step = {"grid_scatter_max_occ": 1, "scatter_max_vjp": 1}
     expect = {k: per_step.get(k, 0) * T_STEPS for k in launches}
     if launches != expect:
         fail(f"detector train step launches {launches}, expected {expect}")
@@ -952,12 +1027,19 @@ def phase_detect_train(kernels):
     if counts != {**zero, **per_step}:
         fail(f"profiler saw launches {counts} in a detector train step, "
              f"expected {per_step}")
-    restore(trainer, snap)
-    mk = trainer.train_step(pts, valid, target)
-    restore(trainer, snap)
-    kernels.reset_launches()
-    mp = trainer.train_step(pts, valid, target, plain=True)
-    torch.cuda.synchronize()
+    # kernel step against plain step under cuDNN's deterministic algorithms,
+    # so that the two differ only where the kernels could
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        restore(trainer, snap)
+        mk = trainer.train_step(pts, valid, target)
+        restore(trainer, snap)
+        kernels.reset_launches()
+        mp = trainer.train_step(pts, valid, target, plain=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     if any(kernels.launches.values()):
         fail(f"the plain detector step launched kernels: {dict(kernels.launches)}")
     cmp = {k: (float(mk[k]), float(mp[k])) for k in ("loss/total", "grad_norm")}
@@ -1302,5 +1384,18 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """main(), with any exception first named on stdout (the innermost
+    frame of this script it passed through) and then raised as it was."""
+    try:
+        return main()
+    except Exception as e:
+        here = [f for f in traceback.extract_tb(e.__traceback__)
+                if f.filename == __file__] or traceback.extract_tb(e.__traceback__)
+        emit({"phase": "failed", "check": f"{here[-1].name}:{here[-1].lineno}",
+              "message": f"{type(e).__name__}: {e}"})
+        raise
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -49,6 +49,11 @@ SOURCES = {
         # f0, f1cat, coords, out, B, HW, C, M, L, level_meta, scale, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_float, _P],
     ),
+    "scatter_max_vjp": (
+        "scatter_max_vjp",
+        # feats, cells, grid, g_grid, out, B, N, C, num_cells, is_bf16, stream
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
     "grid_gather": (
         "grid_gather",
         # grid, cells, out, B, N, C, num_cells, is_bf16, stream

@@ -8,9 +8,11 @@ liso_tpu/ops/grid_scatter_pallas.py).
         winner = feats == gather(grid, cells)
         dfeats = where(winner, gather(g, cells), 0)
     so every tied maximum gets the full cotangent;
+  * `scatter_max_vjp` - that VJP in one pass (kernel
+    `kernels/scatter_max_vjp.cu`), the backward of `grid_scatter_max_occ`;
   * `grid_gather` - per-point row gather, drop bucket reads 0 (kernel K4,
-    `kernels/grid_gather.cu`), the gather of that VJP; differentiable in
-    the grid with `grid_reduce_add` as its backward;
+    `kernels/grid_gather.cu`), the TPU VJP's gather; differentiable in the
+    grid with `grid_reduce_add` as its backward;
   * `grid_reduce_add` - per-cell sums of cell-sorted point rows (kernel
     K1-add, `kernels/grid_reduce_add.cu`), the `op="add"` of `grid_reduce`;
   * `grid_reduce_add_c1` - scatter-add of scalar values over sorted bins
@@ -113,10 +115,8 @@ class _GridScatterMaxOcc(torch.autograd.Function):
         feats, cells, grid = ctx.saved_tensors
         if g_grid is None:
             return None, None, None, None
-        # the raw gathers: K1's VJP does not differentiate through itself
-        winner = feats == _grid_gather_fwd(grid, cells, ctx.plain)
-        g_pts = _grid_gather_fwd(g_grid.contiguous(), cells, ctx.plain)
-        return torch.where(winner, g_pts, 0.0), None, None, None
+        return (scatter_max_vjp(feats, cells, grid, g_grid, ctx.plain),
+                None, None, None)
 
 
 def grid_scatter_max_occ(
@@ -131,6 +131,59 @@ def grid_scatter_max_occ(
     if not (feats.requires_grad and torch.is_grad_enabled()):
         return _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain)
     return _GridScatterMaxOcc.apply(feats, cells, num_cells, plain)
+
+
+def scatter_max_vjp_plain(feats: torch.Tensor, cells: torch.Tensor,
+                          grid: torch.Tensor, g_grid: torch.Tensor):
+    """The TPU VJP of the scatter-max: feats [B, N, C], cells [B, N], grid
+    [B, NC, C] (the forward's), g_grid [B, NC, C] (its cotangent) -> dfeats
+    [B, N, C]: g_grid's row at the point's cell where the feature equals
+    the grid's (every tied maximum wins), +0.0 elsewhere and for the drop
+    bucket (ids >= NC)."""
+    winner = feats == grid_gather_plain(grid, cells)
+    return torch.where(winner, grid_gather_plain(g_grid, cells), 0.0)
+
+
+def scatter_max_vjp(feats: torch.Tensor, cells: torch.Tensor,
+                    grid: torch.Tensor, g_grid: torch.Tensor,
+                    plain: bool = False):
+    """The scatter-max VJP in one kernel launch; bitwise the same as
+    `scatter_max_vjp_plain` (same contract)."""
+    if plain or feats.device.type == "cpu":
+        return scatter_max_vjp_plain(feats, cells, grid, g_grid)
+    _check_cuda(feats, cells, grid, g_grid)
+    if feats.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != feats.dtype for t in (grid, g_grid)):
+        raise TypeError(f"feats, grid, g_grid must share fp32 or bf16, got "
+                        f"{feats.dtype}, {grid.dtype}, {g_grid.dtype}")
+    if (feats.dim() != 3 or grid.dim() != 3
+            or cells.shape != feats.shape[:2]
+            or grid.shape[::2] != feats.shape[::2]
+            or g_grid.shape != grid.shape):
+        raise ValueError(f"feats {tuple(feats.shape)}, cells "
+                         f"{tuple(cells.shape)}, grid {tuple(grid.shape)}, "
+                         f"g_grid {tuple(g_grid.shape)}")
+    b, n, c = feats.shape
+    nc = grid.shape[1]
+    if c % 4:
+        raise ValueError(f"the CUDA kernel takes C % 4 == 0, got C = {c}")
+    feats, grid, g_grid = (t.contiguous() for t in (feats, grid, g_grid))
+    if any(t.data_ptr() % (4 * t.element_size()) for t in (feats, grid, g_grid)):
+        raise ValueError("feats, grid, g_grid must be aligned to 4 elements "
+                         "(vector loads)")
+    cells = cells.to(torch.int32).contiguous()
+    out = torch.empty_like(feats)
+    kernels.check(
+        kernels.function("scatter_max_vjp")(
+            feats.data_ptr(), cells.data_ptr(), grid.data_ptr(),
+            g_grid.data_ptr(), out.data_ptr(), b, n, c, nc,
+            int(feats.dtype == torch.bfloat16),
+            torch.cuda.current_stream(feats.device).cuda_stream,
+        ),
+        "scatter_max_vjp",
+    )
+    kernels.launches["scatter_max_vjp"] += 1
+    return out
 
 
 def grid_gather_plain(grid: torch.Tensor, cells: torch.Tensor):

@@ -120,8 +120,8 @@ def test_grid_gather_bitwise(gen, dtype):
 
 
 def test_scatter_max_vjp_bitwise(gen):
-    """The K1 backward through K4 (two launches) vs the plain VJP, with
-    ties (features on a coarse lattice)."""
+    """The K1 backward through the fused VJP kernel (one launch, no K4) vs
+    the plain VJP, with ties (features on a coarse lattice)."""
     cells = _sorted_cells(gen, 2, 4096, 512)
     feats = torch.round(torch.randn(2, 4096, 16, generator=gen, device="cuda") * 2)
     g = torch.randn(2, 512, 16, generator=gen, device="cuda")
@@ -129,12 +129,61 @@ def test_scatter_max_vjp_bitwise(gen):
     for plain in (False, True):
         f = feats.clone().requires_grad_()
         grid, _ = grid_scatter.grid_scatter_max_occ(f, cells, 512, plain=plain)
-        before = kernels.launches["grid_gather"]
+        before = dict(kernels.launches)
         (grid * g).sum().backward()
-        assert kernels.launches["grid_gather"] == before + (0 if plain else 2)
+        assert kernels.launches["scatter_max_vjp"] == (
+            before["scatter_max_vjp"] + (0 if plain else 1))
+        assert kernels.launches["grid_gather"] == before["grid_gather"]
         grads.append(f.grad)
     torch.cuda.synchronize()
-    assert torch.equal(grads[0], grads[1])
+    assert torch.equal(grads[0].view(torch.int32), grads[1].view(torch.int32))
+
+
+@pytest.mark.parametrize(
+    "b,n,nc,c,dtype,in_grid,special",
+    [
+        # the SLIM step's shape: 5559 of 65536 points reach the grid
+        (1, 65536, 846400, 64, torch.bfloat16, 5559, False),
+        # the detector's: every point in the grid
+        (2, 32768, 512 * 512, 64, torch.float32, 32768, False),
+        # 8-byte vectors (rows not a multiple of 16 bytes), -0.0, +0.0, NaN
+        (2, 4096, 3000, 4, torch.bfloat16, 3000, True),
+        (2, 4096, 3000, 12, torch.bfloat16, 4096, True),
+        (2, 4096, 3000, 12, torch.float32, 4096, True),
+    ],
+)
+def test_scatter_max_vjp_kernel_bitwise(gen, b, n, nc, c, dtype, in_grid,
+                                        special):
+    """The fused VJP kernel vs scatter_max_vjp_plain, as bit patterns:
+    features on a coarse lattice (ties), the grid from K1, dropped points
+    past the first `in_grid` of each sample; with `special`, features hold
+    -0.0, +0.0 and NaN (-0.0 ties with +0.0, NaN never wins)."""
+    cells = torch.sort(torch.randint(0, nc, (b, n), generator=gen, device="cuda")
+                       .int(), -1).values
+    cells[:, in_grid:] = torch.iinfo(torch.int32).max
+    cells[:, in_grid:in_grid + 8] = nc  # the first drop-bucket id
+    cells = torch.sort(cells, -1).values
+    feats = torch.round(2 * torch.randn(b, n, c, generator=gen, device="cuda")) / 2
+    if special:
+        feats = -feats.abs()  # every 0 is -0.0 ...
+        flip = torch.rand(feats.shape, generator=gen, device="cuda") < 0.5
+        feats = torch.where((feats == 0) & flip, 0.0, feats)  # ... or +0.0
+        nan = torch.rand(feats.shape, generator=gen, device="cuda") < 0.05
+        feats = torch.where(nan, torch.nan, feats)
+    feats = feats.to(dtype)
+    grid = grid_scatter.grid_scatter_max_occ(torch.nan_to_num(feats, nan=-7.0),
+                                             cells, nc)[0]
+    g = torch.randn(b, nc, c, generator=gen, device="cuda").to(dtype)
+    before = kernels.launches["scatter_max_vjp"]
+    got = grid_scatter.scatter_max_vjp(feats, cells, grid, g)
+    assert kernels.launches["scatter_max_vjp"] == before + 1
+    want = grid_scatter.scatter_max_vjp(feats, cells, grid, g, plain=True)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert int((got != 0).sum()) > 0
+    if special:
+        assert bool((got[torch.isnan(feats)] == 0).all())
 
 
 @pytest.mark.parametrize(
@@ -201,6 +250,39 @@ def test_corr_window_bwd_within_sum_order_slack(gen, h, c):
     assert bool((got[0][:, :3] == 0).all())
 
 
+@pytest.mark.parametrize("case", ["flow_sigma_8", "all_far_out"])
+def test_corr_window_bwd_large_flows(gen, case):
+    """K5 at the train step's coarse grid (115 x 115, C = 128) where most
+    taps leave a block's shared-memory region: coords carrying flows of
+    sigma = 8 px (they then take the global path), or every coord far out
+    of range (no cotangent reaches f0 or f1). Within the fp32 sum-order
+    slack of the plain version."""
+    h, c = 115, 128
+    f0 = torch.randn(1, h * h, c, generator=gen, device="cuda")
+    f1cat, lv = corr_fused.pool_f1_levels(
+        torch.randn(1, h, h, c, generator=gen, device="cuda"), 4)
+    base = torch.stack(torch.meshgrid(
+        torch.arange(h, device="cuda"), torch.arange(h, device="cuda"),
+        indexing="ij")).float().reshape(1, 2, h * h)
+    if case == "flow_sigma_8":
+        coords = base + 8 * torch.randn(1, 2, h * h, generator=gen, device="cuda")
+    else:
+        coords = torch.where(torch.rand(1, 2, h * h, generator=gen,
+                                        device="cuda") < 0.5, -1e5, 3e4)
+    g = torch.randn(1, len(lv.shapes) * 64, h * h, generator=gen, device="cuda")
+    args = (f0, f1cat, coords, g, lv, 3)
+    got = corr_fused.corr_window_bwd(*args)
+    want = corr_fused.corr_window_bwd(*args, plain=True)
+    slack = corr_fused.bwd_sum_order_slack(*args)
+    torch.cuda.synchronize()
+    for x, y, s in zip(got, want, slack):
+        assert bool(((x - y).abs() <= s + 1e-30).all())
+    if case == "all_far_out":
+        assert bool((got[0] == 0).all()) and bool((got[1] == 0).all())
+    else:
+        assert float(got[1].abs().max()) > 0
+
+
 def test_knn_banded_contract(gen):
     """x-sorted clouds as the trainer sorts them; the last chunk of queries
     lies beyond the band. Against the exact plain version."""
@@ -244,10 +326,12 @@ def test_train_step_kernels_vs_plain(gen):
         m = tr.train_step(batch, plain=plain)
         out.append(m)
         if not plain:
-            # every kernel but K1-add, which no path of the port runs
-            assert kernels.launches["grid_reduce_add"] == 0
+            # every kernel but K1-add and K4, which no path of the port
+            # runs (the fused VJP replaced K4's two launches)
+            idle = ("grid_reduce_add", "grid_gather")
+            assert all(kernels.launches[k] == 0 for k in idle)
             assert all(v > 0 for k, v in kernels.launches.items()
-                       if k != "grid_reduce_add"), kernels.launches
+                       if k not in idle), kernels.launches
         else:
             assert all(v == 0 for v in kernels.launches.values()), kernels.launches
     for k in ("loss", "grad_norm"):
@@ -306,11 +390,12 @@ def test_grid_gather_vjp_uses_k1_add(gen):
 
 
 def test_detector_train_step_kernels_vs_plain(gen):
-    """A small fp32 detector train step launches K1 once and K4 twice and
+    """A small fp32 detector train step launches K1 and the VJP once each and
     matches the plain step from the same seed (both fp32: the trainer turns
     TF32 off itself); predict_step keeps the same boxes. cuDNN runs its
     deterministic algorithms here, so that the two trainers' states differ
-    only where K1 and K4 differ from their plain versions (they do not)."""
+    only where K1 and the VJP differ from their plain versions (they do
+    not)."""
     from liso_tpu_torch.ops.boxes import Boxes
     from liso_tpu_torch.train.detector_train import DetectorTrainer
 
@@ -332,7 +417,7 @@ def test_detector_train_step_kernels_vs_plain(gen):
             out.append(tr.train_step(pts, valid, target, plain=plain))
             want = {k: 0 for k in kernels.launches}
             if not plain:
-                want.update(grid_scatter_max_occ=1, grid_gather=2)
+                want.update(grid_scatter_max_occ=1, scatter_max_vjp=1)
             assert kernels.launches == want
             preds.append(tr.predict_step(pts, valid, plain=plain))
     finally:

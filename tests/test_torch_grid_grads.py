@@ -1,6 +1,6 @@
 """The plain versions of kernels K4 (grid_gather), K3
-(grid_reduce_add_c1) and K1-add (grid_reduce_add), the scatter-max VJP
-built on K4 and the grid_gather VJP built on K1-add
+(grid_reduce_add_c1) and K1-add (grid_reduce_add), of the fused
+scatter-max VJP (scatter_max_vjp) and the grid_gather VJP built on K1-add
 (liso_tpu_torch/ops/grid_scatter.py), against liso_tpu's Pallas kernels in
 interpret mode (liso_tpu/ops/grid_scatter_pallas.py). The CUDA kernels are
 held to these plain versions on the card (tests/test_torch_cuda_kernels.py,
@@ -74,6 +74,79 @@ def test_scatter_max_vjp_matches_pallas_vjp(ties):
     if ties:  # the data really has ties that take the full cotangent
         winners = (tf.grad != 0).sum()
         assert int(winners) > int((grid != 0).sum()) + 100
+
+
+def _bits(x):
+    """Bit patterns, so that -0.0 and +0.0 (and NaN payloads) differ."""
+    x = np.asarray(x)
+    return x.view(np.int16 if x.dtype.itemsize == 2 else np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["no_ties", "ties", "dropped",
+                                  "signed_zeros_nan"])
+def test_scatter_max_vjp_plain_matches_pallas_vjp(case, dtype):
+    """scatter_max_vjp_plain, the oracle of the fused CUDA VJP, is bitwise
+    the Pallas VJP of grid_reduce_with_occ(..., "max", interpret=True):
+    every tied maximum gets the full cotangent; drop-bucket points (ids
+    num_cells .. num_cells + 23, inside the Pallas grid's pad rows, and the
+    int32-max pad) get +0.0, even where their feature is 0. In
+    `signed_zeros_nan` the features hold -0.0, +0.0 and NaN: -0.0 ties
+    with +0.0 and NaN never wins. There the VJP rule itself is called with
+    a finite grid (a NaN or inf in a grid tile would reach every point of
+    the tile through the TPU's one-hot matmul gather)."""
+    rng = np.random.RandomState(["no_ties", "ties", "dropped",
+                                 "signed_zeros_nan"].index(case))
+    b, n, nc, c = 2, 1024, 1000, 16
+    cells = _crowded_cells(rng, b, n, nc)
+    if case == "dropped":  # half the points in the drop bucket
+        cells = np.sort(np.where(rng.rand(b, n) < 0.5, nc + rng.randint(
+            0, 24, (b, n)), cells).astype(np.int32), -1)
+    feats = rng.randn(b, n, c).astype(np.float32)
+    if case in ("ties", "dropped"):
+        feats = np.round(feats)
+    if case == "signed_zeros_nan":
+        feats = -np.abs(np.round(feats * 0.8))  # many -0.0
+        zero = feats == 0
+        feats[zero & (rng.rand(*feats.shape) < 0.5)] = 0.0  # and +0.0
+        feats[rng.rand(*feats.shape) < 0.05] = np.nan
+    g = rng.randn(b, nc, c).astype(np.float32)
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    # the same values on both sides (bf16 values pass through fp32 exactly)
+    tf, tg = _t(feats).to(tdt), _t(g).to(tdt)
+    jf, jg = jnp.asarray(tf.float().numpy(), jdt), jnp.asarray(tg.float().numpy(), jdt)
+    jc = jnp.asarray(cells)
+    if case != "signed_zeros_nan":
+        (want_grid, want_occ), vjp = jax.vjp(
+            lambda f: jgs.grid_reduce_with_occ(f, jc, nc, "max", True), jf)
+        (want,) = vjp((jg, jnp.zeros_like(want_occ)))
+        grid = tgs.grid_scatter_max_occ(tf, _t(cells), nc)[0]
+        np.testing.assert_array_equal(
+            grid.float().numpy(), np.asarray(want_grid.astype(jnp.float32)))
+    else:
+        grid = tgs.grid_scatter_max_occ(torch.nan_to_num(tf, nan=-7.0),
+                                        _t(cells), nc)[0]
+        want, _ = jgs._grid_reduce_occ_bwd(
+            nc, "max", True, True,
+            (jc, jf, jnp.asarray(grid.float().numpy(), jdt)),
+            (jg, jnp.zeros((b, nc, 1), jnp.float32)))
+    got = tgs.scatter_max_vjp_plain(tf, _t(cells), grid, tg)
+    assert got.dtype == tdt
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_array_equal(_bits(got.float().numpy()), _bits(want))
+    win = got != 0
+    assert int(win.sum()) > 100
+    if case == "ties":  # many points share their cell's maximum
+        assert int(win.sum()) > int((grid != 0).sum()) + 100
+    if case == "dropped":
+        dropped = _t(cells) >= nc
+        assert int(dropped.sum()) > n // 2
+        assert bool((got[dropped] == 0).all()) and bool((tf[dropped] == 0).any())
+    if case == "signed_zeros_nan":  # both zeros win, NaN never does
+        neg0 = (tf == 0) & torch.signbit(tf)
+        assert bool(win[neg0].any()) and bool(win[(tf == 0) & ~neg0].any())
+        assert bool((got[torch.isnan(tf)] == 0).all())
 
 
 @pytest.mark.parametrize("rows,n,res", [(2, 4096, 2048), (3, 2048, 100_000)])

@@ -695,6 +695,8 @@ def phase_train_kernels(trainer, batch):
         "max_abs_err": max(float((x - y).abs().max()) for x, y in zip(got, want)),
         "max_err_over_slack": ratio,
         "ms": cuda_ms(lambda: corr_fused.corr_window_bwd(*args)),
+        "kernel_only_ms": kernel_only_ms(
+            lambda: corr_fused.corr_window_bwd(*args), "corr_window_bwd_kernel"),
         "plain_ms": cuda_ms(lambda: corr_fused.corr_window_bwd(*args, plain=True)),
         "bound_ms": bms, "bound_by": bby, "library_ms": None,
         "bytes": nbytes, "flop": in_range * 128 * 4, "in_range_taps": in_range,

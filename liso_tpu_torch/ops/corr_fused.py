@@ -167,16 +167,12 @@ def sum_order_slack(
     return abs_taps * (2 * c * 2.0**-24 * (1 + 2.0**-7))
 
 
-def _level_meta(levels: CorrLevels):
-    """Host array of (h, w, offset) per level, as the kernels take it."""
-    nl = len(levels.shapes)
-    return (ctypes.c_int * (3 * nl))(
-        *[
-            v
-            for (hk, wk), off in zip(levels.shapes, levels.offsets)
-            for v in (hk, wk, off)
-        ]
-    )
+def _level_meta(levels: CorrLevels, *extra: int):
+    """Host array of (h, w, offset) per level, as the kernels take it, then
+    `extra`."""
+    meta = [v for (hk, wk), off in zip(levels.shapes, levels.offsets)
+            for v in (hk, wk, off)] + list(extra)
+    return (ctypes.c_int * len(meta))(*meta)
 
 
 def _fused_corr_window_fwd(f0, f1cat, coords_t, levels, radius, plain):
@@ -257,8 +253,9 @@ def bwd_sum_order_slack(f0, f1cat, coords_t, g, levels: CorrLevels,
     [B, M, C]): how far two fp32 sums of the same n products, taken in
     different orders, can lie apart: 2 * n * 2^-24 * sum |product|, with n
     the count of non-zero cotangent entries that feed the output (the
-    recursive-sum bound, twice). The kernel sums df0 in tap order and df1
-    by atomics in no fixed order; the plain version sums by matmul."""
+    recursive-sum bound, twice). The kernel sums both with tensor-core
+    products over a region of cells and df1 across blocks by atomics in no
+    fixed order; the plain version sums by matmul."""
     dcorr = _dense_corr_cotangent(
         g.float(), coords_t, levels, radius, _scale(f0.shape[-1])
     )
@@ -274,7 +271,9 @@ def bwd_sum_order_slack(f0, f1cat, coords_t, g, levels: CorrLevels,
 def corr_window_bwd(f0, f1cat, coords_t, g, levels: CorrLevels, radius: int,
                     plain: bool = False):
     """The taps' cotangent -> (df0, df1) in fp32; same contract as
-    `corr_window_bwd_plain`."""
+    `corr_window_bwd_plain`. The HW pixels form the grid of f1cat's first
+    level (`levels.logical[0]`), row-major: the kernel takes 2-D tiles of
+    them."""
     if plain or f0.device.type == "cpu":
         return corr_window_bwd_plain(f0, f1cat, coords_t, g, levels, radius)
     dev = f0.device
@@ -289,7 +288,7 @@ def corr_window_bwd(f0, f1cat, coords_t, g, levels: CorrLevels, radius: int,
         or coords_t.shape != (b, 2, hw)
         or g.shape != (b, nl * 64, hw)
         or c % 32 != 0
-        or c > 256
+        or hw != levels.logical[0][0] * levels.logical[0][1]
     ):
         raise ValueError(
             f"f0 {tuple(f0.shape)}, f1cat {tuple(f1cat.shape)} "
@@ -300,15 +299,17 @@ def corr_window_bwd(f0, f1cat, coords_t, g, levels: CorrLevels, radius: int,
     f1cat = f1cat.to(torch.bfloat16).contiguous()
     coords_t = coords_t.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
-    df0 = torch.empty(b, hw, c, dtype=torch.float32, device=dev)
+    if f0.data_ptr() % 16 or f1cat.data_ptr() % 16:
+        raise ValueError("f0 and f1cat must be 16-byte aligned")
+    df0 = torch.zeros(b, hw, c, dtype=torch.float32, device=dev)
     df1 = torch.zeros(b, levels.total, c, dtype=torch.float32, device=dev)
     fn = kernels.function("corr_window_bwd")
     kernels.check(
         fn(
             f0.data_ptr(), f1cat.data_ptr(), coords_t.data_ptr(),
             g.data_ptr(), df0.data_ptr(), df1.data_ptr(), b, hw, c,
-            levels.total, nl, _level_meta(levels), _scale(c),
-            torch.cuda.current_stream(dev).cuda_stream,
+            levels.total, nl, _level_meta(levels, levels.logical[0][1]),
+            _scale(c), torch.cuda.current_stream(dev).cuda_stream,
         ),
         "corr_window_bwd",
     )

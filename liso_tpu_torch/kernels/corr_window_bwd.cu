@@ -29,16 +29,17 @@
 //     df0[tile]   += dcorr f1cat[region]  kept in registers across levels
 // A tap in range but outside the region (large or scattered flow) is done
 // at once by its warp, lane = channel, with global atomics into df1 and
-// df0. df0 is zeroed by the caller and written by atomics. (A first
-// version summed df1 per tap in shared memory: Hopper has no shared fp32
-// atomic add, and its compare-and-swap loops made it slower than the
-// global atomics it replaced.)
+// df0. df0 is zeroed by the caller and written by atomics. The region is
+// not summed per tap in shared memory: Hopper has no shared fp32 atomic
+// add (it compiles to a compare-and-swap loop), and where eight warps'
+// windows overlap those loops ran slower than global atomics.
 //
 // Bound: bytes. At the train step's width (B=1, HW=13225 on a 115 x 115
 // grid, C=128, M=19776, L=4) a call reads 13.5 MB of cotangent, 3.4 MB of
 // f0 and 5.1 MB of f1cat and writes 6.8 MB of df0 and 10.1 MB of df1. The
-// 433 M products of each output become 2 x 3.7 M mma tiles, and the global
-// atomics fall from 433 M to the flushes (tens of millions).
+// 433 M products of each output become 1.44 M mma instructions each (dense
+// over the region), and the global atomics fall from 433 M to one per
+// touched (cell, channel) of a block plus the taps outside the regions.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

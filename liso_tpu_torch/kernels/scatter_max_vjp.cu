@@ -24,10 +24,11 @@
 // the features are read once and dfeats written once, both streaming.
 //
 // Bound: bytes. At the SLIM train step's width (B=1, 65536 points of which
-// 5559 reach the grid, C=64 bf16) it reads the cells (256 KB) and three
-// 128-byte rows per point in the grid, and writes 8.4 MB: about 10.8 MB.
-// At the detector's (B=2, 32768 points each, all in the grid, C=64 fp32):
-// about 67 MB.
+// 5559 reach the grid, C=64 bf16) it must read the cells (256 KB), the
+// feature rows of the points in the grid and the grid and cotangent rows
+// of their cells (128 bytes each), and write 8.4 MB: about 10.8 MB. At the
+// detector's (B=2, 32768 points each, all in the grid, C=64 fp32): about
+// 64 MB.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

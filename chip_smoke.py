@@ -15,11 +15,14 @@ Phases, each printing JSON lines:
                the SLIM train step's (grid 920 over 120 m, 65536 points,
                batch 1, 6 iterations): K1, K4 and the VJP bitwise, K3
                (uniform and skewed bins) and K5 within their
-               fp32 sum-order bounds, K6 within its approximation contract
-               (knn_banded.contract_report); kernel, plain and library
-               times (CUDA events, median of 20 calls), for K1, K3 and the
-               VJP also the kernel alone (torch.profiler, mean of 20
-               launches), for K1 and K3 the wrapper's enqueue time
+               fp32 sum-order bounds, K6 against the exact search of its
+               band (nn_1_sorted_band_plain) on every valid query and
+               within its approximation contract against the exact 1-NN
+               (knn_banded.contract_report), with the pairs its sweep
+               tested (its bound); kernel, plain and library
+               times (CUDA events, median of 20 calls), for K1-K3, K5, K6
+               and the VJP also the kernel alone (torch.profiler, mean of
+               20 launches), for K1 and K3 the wrapper's enqueue time
                (host_ms), and the bound. K1's and
                K3's library calls allocate a zeroed grid each time, as the
                kernels return a fresh one (the reused, pre-zeroed grid's
@@ -29,8 +32,10 @@ Phases, each printing JSON lines:
                steps, with every launch count reset just before and read
                just after; ms per step (host clock, each step awaited) and
                frames/s; launches confirmed by
-               torch.profiler; final flow and box probs against the same run
-               through the plain versions;
+               torch.profiler; K2 held and timed on the six lookups of one
+               streaming step, captured by wrapping
+               corr_fused.fused_corr_window; final flow and box probs
+               against the same run through the plain versions;
   5. train   - the SLIM train step (SlimTrainer.train_step, slim_liso flags,
                bf16 compute) at the train shapes above with seeded weights
                and the JAX train benchmark's clouds: 2 warm-up steps, then
@@ -389,6 +394,155 @@ def shape_entry(r):
                               "library_ms_prezeroed") if k in r}
 
 
+def check_corr_fwd(f0, f1cat, coords, lv, layout):
+    """K2 against its plain version: within one bf16 ulp plus the fp32
+    sum-order slack of a cancelling dot (corr_fused.sum_order_slack), and
+    every tap outside its level's padded extent exactly 0. Returns (got,
+    want, |got - want|, one ulp, slack)."""
+    import torch
+
+    from liso_tpu_torch.ops import corr_fused
+
+    got = corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3)
+    want = corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3, plain=True)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    ulp = bf16_ulp(want) * 1.0001
+    slack = corr_fused.sum_order_slack(f0, f1cat, coords, lv, 3)
+    if not bool((err <= ulp + slack).all()):
+        fail(f"K2 corr_window_fwd differs from its plain version by more than "
+             f"one bf16 ulp plus the fp32 sum-order slack on {layout} (max "
+             f"abs err {float(err.max())})")
+    ok = torch.cat([corr_fused._window_cells(coords, lv, 3, lvl)[1]
+                    for lvl in range(len(lv.shapes))], dim=-1).transpose(1, 2)
+    if not bool((got[~ok] == 0).all()):
+        fail(f"K2 corr_window_fwd: out-of-range taps are not exactly 0 on {layout}")
+    return got, want, err, ulp, slack
+
+
+def k2_side_taps(coords, lv, tile=(8, 8), region=(20, 20)):
+    """Per level, the share of K2's in-range taps that lie outside their
+    pixel tile's region and take the kernel's slower per-tap path: the
+    kernel's region rule (corr_window_fwd.cu: the box of the tile's
+    in-range window cells where it holds at most 20 x 20 cells, else 20 x 20
+    cells around the tile's mean coords) in PyTorch, sums in another
+    order."""
+    import torch
+
+    b = coords.shape[0]
+    h, w = lv.logical[0]
+    th, tw = tile
+    hp, wp = -(-h // th) * th, -(-w // tw) * tw
+    c = torch.nn.functional.pad(coords.reshape(b, 2, h, w),
+                                (0, wp - w, 0, hp - h), value=float("nan"))
+    real = ~torch.isnan(c[:, 0])
+    cr, cc = torch.nan_to_num(c[:, 0], nan=-1e9), torch.nan_to_num(c[:, 1], nan=-1e9)
+    near = real & (cr > -16) & (cr < h + 16) & (cc > -16) & (cc < w + 16)
+
+    def per_tile(x, op):  # reduce over each tile, then back to pixels
+        t = x.reshape(b, hp // th, th, wp // tw, tw)
+        t = op(op(t, 4), 2)
+        return t.repeat_interleave(th, 1).repeat_interleave(tw, 2)
+
+    cnt = per_tile(near.float(), lambda t, d: t.sum(d))
+    mean = [torch.where(cnt > 0, per_tile(torch.where(near, x, 0.0),
+                                          lambda t, d: t.sum(d)) / cnt.clamp(min=1),
+                        -1e9) for x in (cr, cc)]
+    d = torch.arange(-3, 5, device=coords.device)
+    shares = []
+    for lvl, (hl, wl) in enumerate(lv.shapes):
+        div = 2.0**lvl
+        x0 = [torch.floor(x / div).clamp(-1e6, 1e6) for x in (cr, cc)]
+        lo = [(x - 3).clamp(min=0) for x in x0]
+        hi = [torch.minimum(x + 4, torch.full_like(x, e - 1)) for x, e in zip(x0, (hl, wl))]
+        anyin = real & (lo[0] <= hi[0]) & (lo[1] <= hi[1])
+        big = 1e9
+        blo = [per_tile(torch.where(anyin, v, big), lambda t, dd: t.amin(dd)) for v in lo]
+        bhi = [per_tile(torch.where(anyin, v, -big), lambda t, dd: t.amax(dd)) for v in hi]
+        ext = [bh - bl + 1 for bl, bh in zip(blo, bhi)]
+        fits = (ext[0] * ext[1] <= region[0] * region[1]) & (blo[0] <= bhi[0])
+        counts = []
+        for k, (e, size) in enumerate(((hl, region[0]), (wl, region[1]))):
+            rs = min(size, e)
+            o_mean = (torch.floor(mean[k] / div + 0.5) - rs // 2).clamp(0, e - rs)
+            o = torch.where(fits, blo[k], o_mean)
+            n = torch.where(fits, ext[k], torch.full_like(o, rs))
+            cells = x0[k][..., None] + d
+            ok = (cells >= 0) & (cells < e)
+            inr = ok & (cells >= o[..., None]) & (cells < (o + n)[..., None])
+            counts.append((ok.sum(-1), inr.sum(-1)))
+        (rk, rin), (ck, cin) = counts
+        in_range = torch.where(real, rk * ck, 0).sum()
+        side = torch.where(real, rk * ck - rin * cin, 0).sum()
+        shares.append(float(side) / max(float(in_range), 1.0))
+    return shares
+
+
+def step_corr_lookups(serve, slim, det, fmap, cn, pts, valid):
+    """The inputs of K2's launches in one fused_streaming step (one per
+    RAFT iteration), captured by wrapping corr_fused.fused_corr_window."""
+    from liso_tpu_torch.ops import corr_fused
+
+    seen = []
+    fwd = corr_fused.fused_corr_window
+
+    def keep(f0, f1cat, coords_t, levels, radius, plain=False):
+        seen.append((f0.detach().clone(), f1cat.detach().clone(),
+                     coords_t.detach().clone(), levels))
+        return fwd(f0, f1cat, coords_t, levels, radius, plain)
+
+    corr_fused.fused_corr_window = keep
+    try:
+        serve.fused_streaming(slim, det, fmap, cn, pts, valid)
+    finally:
+        corr_fused.fused_corr_window = fwd
+    if len(seen) != ITERS:
+        fail(f"a streaming step made {len(seen)} corr lookups, expected {ITERS}")
+    return seen
+
+
+def serving_step_layout(lookups):
+    """K2 on the coords of a real streaming step: each of its lookups held
+    to the plain version; kernel-only (profiler, mean over the step's
+    launches), event and plain ms of the whole step's lookups, per launch;
+    the flow (coords less the pixel grid, px) of each lookup; the byte
+    bound of one lookup."""
+    import torch
+
+    from liso_tpu_torch.ops import corr_fused
+
+    errs = []
+    for i, (f0, f1cat, coords, lv) in enumerate(lookups):
+        _, _, err, _, _ = check_corr_fwd(f0, f1cat, coords, lv,
+                                         f"the streaming step's lookup {i}")
+        errs.append(float(err.max()))
+    n = len(lookups)
+
+    def run(plain=False):
+        for f0, f1cat, coords, lv in lookups:
+            corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3, plain=plain)
+
+    f0, f1cat, coords, lv = lookups[-1]
+    h, w = lv.logical[0]
+    grid = torch.stack(torch.meshgrid(
+        torch.arange(h, device="cuda"), torch.arange(w, device="cuda"),
+        indexing="ij")).float().reshape(1, 2, h * w)
+    flow_px = [(c - grid).norm(dim=1) for _, _, c, _ in lookups]
+    nbytes = (f0.numel() * 2 + f1cat.numel() * 2 + coords.numel() * 4
+              + f0.shape[0] * len(lv.shapes) * 64 * f0.shape[1] * 4)
+    return {
+        "lookups": n,
+        "outside_region_share": [k2_side_taps(c, lv) for _, _, c, lv in lookups],
+        "flow_px_mean": [float(f.mean()) for f in flow_px],
+        "flow_px_max": [float(f.max()) for f in flow_px],
+        "max_abs_err": max(errs),
+        "bound_ms": bound(nbytes, 0, BF16_FLOP_PER_S)[0],
+        "ms": cuda_ms(run) / n,
+        "kernel_only_ms": kernel_only_ms(run, "corr_window_fwd_kernel"),
+        "plain_ms": cuda_ms(lambda: run(plain=True)) / n,
+    }
+
+
 def phase_kernels():
     import torch
 
@@ -423,16 +577,8 @@ def phase_kernels():
     coords = base + 4 * torch.randn(BATCH, 2, hc * hc, generator=g, device="cuda")
     coords[:, :, :64] = -1e4  # far out of range
     coords[:, 1, 64:128] = 3e3
-    got = corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3)
-    want = corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3, plain=True)
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    ulp = bf16_ulp(want) * 1.0001
-    slack = corr_fused.sum_order_slack(f0, f1cat, coords, lv, 3)
-    if not bool((err <= ulp + slack).all()):
-        fail(f"K2 corr_window_fwd differs from its plain version by more than "
-             f"one bf16 ulp plus the fp32 sum-order slack (max abs err "
-             f"{float(err.max())})")
+    got, want, err, ulp, slack = check_corr_fwd(f0, f1cat, coords, lv,
+                                                "the check's layout")
     beyond = err > ulp  # only where a dot cancels: see sum_order_slack
     if not bool((got[:, :, :128] == 0).all()):
         fail("K2 corr_window_fwd: out-of-range taps are not exactly 0")
@@ -448,6 +594,9 @@ def phase_kernels():
         "replaces": "liso_tpu/ops/corr_fused_pallas.py:154",
         "max_abs_err": float(err.max()),
         "ms": cuda_ms(lambda: corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3)),
+        "kernel_only_ms": kernel_only_ms(
+            lambda: corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3),
+            "corr_window_fwd_kernel"),
         "plain_ms": cuda_ms(
             lambda: corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3, plain=True)
         ),
@@ -456,6 +605,7 @@ def phase_kernels():
         "library_ms": None,
         "bytes": k2_bytes,
         "flop": k2_ops,
+        "outside_region_share": k2_side_taps(coords, lv),
         "taps_beyond_one_ulp": int(beyond.sum()),
         "taps": got.numel(),
         "max_abs_value_where_beyond_one_ulp": float(want[beyond].abs().max())
@@ -711,7 +861,17 @@ def phase_train_kernels(trainer, batch):
     q = (p0.pcl[0, :, :3][None] + flows).reshape(1, 18 * T_PTS, 3)
     qv = p0.valid.repeat(1, 18)
     refs, rv = p1.pcl[..., :3].contiguous(), p1.valid
-    d, ix = knn_banded.nn_1_sorted(q, refs, qv, rv)
+    visited = torch.zeros(1, dtype=torch.int64, device="cuda")
+    d, ix = knn_banded.nn_1_sorted(q, refs, qv, rv, visited=visited)
+    visited_pairs = int(visited)
+    # the function the kernel computes: the exact 1-NN over each chunk's
+    # band, every valid query (margin inf: no query is out of band)
+    db, ib = knn_banded.nn_1_sorted_band_plain(q, refs, qv, rv, 8.0)
+    agree = knn_banded.contract_report(q, refs, qv, rv, float("inf"), d, ix,
+                                       db, ib)
+    if agree["below_exact"] or agree["in_band_mismatch"]:
+        fail(f"K6 knn_banded differs from the exact search of its band "
+             f"beyond the fp32 slack: {agree}")
     dp, ip = knn_banded.nn_1_sorted(q, refs, qv, rv, plain=True)
     rep = knn_banded.contract_report(q, refs, qv, rv, 8.0, d, ix, dp, ip)
     if rep["below_exact"] or rep["in_band_mismatch"]:
@@ -720,15 +880,16 @@ def phase_train_kernels(trainer, batch):
     rpen = torch.where(rv, 0.0, knn_banded.BIG)
     ranges = knn_banded.band_ranges(q, qpen, refs, rpen, 8.0)
     tile_pairs = int((ranges[..., 1] - ranges[..., 0]).sum()) * 1024 * 512
-    # the work this run's data needs: the valid (query, ref) pairs within
-    # the 8 m x-band, 3 FMAs (6 flop) each for the distance; the kernel
-    # visits whole tiles (tile_pairs)
+    # the work this run's data needs: the (valid query, ref) pairs the
+    # kernel's sweep tested (its own count), 3 FMAs (6 flop) each for the
+    # distance; PR 6's bound (band_bound_ms) counted the valid pairs within
+    # the 8 m x-band, and the tile-band bound every pair of the band's tiles
     rx = torch.sort(refs[0, rv[0], 0]).values
     qx = q[0, qv[0], 0]
     pairs = int((torch.searchsorted(rx, qx + 8.0, right=True)
                  - torch.searchsorted(rx, qx - 8.0)).sum())
     nbytes = q.numel() * 4 + refs.numel() * 4 + qv.numel() + rv.numel() + d.numel() * 8
-    bms, bby = bound(nbytes, pairs * 6, FP32_FLOP_PER_S)
+    bms, bby = bound(nbytes, visited_pairs * 6, FP32_FLOP_PER_S)
     step = 16384
 
     def cdist_argmin():
@@ -739,15 +900,21 @@ def phase_train_kernels(trainer, batch):
         "name": "knn_banded", "route": "cuda",
         "source": "liso_tpu_torch/kernels/knn_banded.cu",
         "replaces": "liso_tpu/ops/knn_pallas.py:33",
-        "max_abs_err": float((d - dp).abs()[qv].max()),
+        "max_abs_err": float((d - db).abs()[qv].max()),
+        "max_abs_err_vs_exact": float((d - dp).abs()[qv].max()),
+        "band_agreement": agree,
         "contract": rep,
         "ms": cuda_ms(lambda: knn_banded.nn_1_sorted(q, refs, qv, rv)),
+        "kernel_only_ms": kernel_only_ms(
+            lambda: knn_banded.nn_1_sorted(q, refs, qv, rv), "knn_banded_kernel"),
         "plain_ms": cuda_ms(lambda: knn_banded.nn_1_sorted(q, refs, qv, rv, plain=True)),
         "bound_ms": bms, "bound_by": bby,
+        "visited_pairs": visited_pairs,
+        "band_bound_ms": bound(nbytes, pairs * 6, FP32_FLOP_PER_S)[0],
         "library_ms": cuda_ms(cdist_argmin, reps=5, warmup=1),
         "library_call": f"torch.cdist + argmin, fp32, over {step}-query chunks "
                         "(the whole distance matrix would take 309 GB), median of 5",
-        "bytes": nbytes, "flop": pairs * 6, "band_pairs": pairs,
+        "bytes": nbytes, "flop": visited_pairs * 6, "band_pairs": pairs,
         "tile_band_pairs": tile_pairs,
         "tile_band_bound_ms": bound(nbytes, tile_pairs * 6, FP32_FLOP_PER_S)[0],
         "shape": f"q [1, {18 * T_PTS}, 3], refs [1, {T_PTS}, 3] fp32 -> d, idx",
@@ -1281,6 +1448,8 @@ def main() -> int:
         for name, (counts, dev_ms, rows, _) in profiles.items()
     }
 
+    k2_step = serving_step_layout(
+        step_corr_lookups(serve, slim, det, fmap, cn, frames[1], valid))
     ref = run_path(serve, slim, det, frames, valid, plain=True)
     r_flow_ff, r_probs_ff, r_flow, _, r_probs = ref.pop("outputs")
     diffs = {
@@ -1315,6 +1484,7 @@ def main() -> int:
     for r in tkres:
         emit({"phase": "kernel", "path": "train", **r})
     by_name = {r["name"]: r for r in kres}
+    by_name["corr_window_fwd"]["serving_step_layout"] = k2_step
     for r in tkres:  # K1 at the train step's shape goes beside its serving entry
         if r["name"] in by_name:
             by_name[r["name"]]["train_shape"] = shape_entry(r)
@@ -1379,7 +1549,8 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "kernel_only_ms", "host_ms",
             "library_ms_prezeroed", "train_shape", "detect_train_shape",
-            "skewed_layout", "slim_step_layout")
+            "skewed_layout", "slim_step_layout", "serving_step_layout",
+            "visited_pairs", "band_bound_ms", "band_agreement")
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -72,8 +72,9 @@ SOURCES = {
     ),
     "knn_banded": (
         "knn_banded",
-        # q, refs, ranges, dist, index, B, Nq, Nr_pad, stream
-        [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # q, q_valid, refs, ranges, suf_min, pre_max, dist, index, visited,
+        # B, Nq, Nr_pad, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     ),
     "grid_reduce_add": (
         "grid_reduce_add",

@@ -40,16 +40,12 @@
 // 433 M products of each output become 1.44 M mma instructions each (dense
 // over the region), and the global atomics fall from 433 M to one per
 // touched (cell, channel) of a block plus the taps outside the regions.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "corr_tile.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kW1 = 8;  // window side 2r + 2 for radius 3
-constexpr int kTaps = kW1 * kW1;
+using namespace corr_tile;
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 8;  // tile side in pixels
@@ -63,40 +59,6 @@ constexpr int kDStride = kCells + 8;
 constexpr int kFStride = kCh + 8;
 constexpr size_t kSmem =
     sizeof(__nv_bfloat16) * (kPix * kDStride + kCells * kFStride + kPix * kFStride);
-
-struct Levels {
-  int n;
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int off[kMaxLevels];
-};
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// four 8x8 bf16 matrices; thread T gives the row address of matrix T / 8
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// acc (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float* acc, const unsigned* a,
-                                    const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ void add2(float* p, float x, float y) {
   if (x != 0.f || y != 0.f) atomicAdd(reinterpret_cast<float2*>(p), make_float2(x, y));
@@ -132,31 +94,15 @@ corr_window_bwd_kernel(const __nv_bfloat16* __restrict__ f0,
 
   // the pixel of tile slot q, or -1 outside the grid
   auto pixel = [&](int q) {
-    const int y = ty * kTile + q / kTile, x = tx * kTile + q % kTile;
-    return y < hpix && x < wpix ? y * wpix + x : -1;
+    return tile_pixel<kTile, kTile>(q, ty, tx, hpix, wpix);
   };
 
-  // the region's centre: the mean coords of the tile's pixels that lie
-  // near the grid (far-away coords would pull it off every window)
+  // the region's centre: the mean coords of the tile's pixels near the grid
   if (warp == 0) {
-    float sr = 0.f, sc = 0.f, cnt = 0.f;
-    for (int q = lane; q < kPix; q += 32) {
-      const int p = pixel(q);
-      if (p < 0) continue;
-      const float r = cr[p], col = cc[p];
-      if (r > -16.f && r < hpix + 16.f && col > -16.f && col < wpix + 16.f) {
-        sr += r; sc += col; cnt += 1.f;
-      }
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      sr += __shfl_xor_sync(0xffffffffu, sr, o);
-      sc += __shfl_xor_sync(0xffffffffu, sc, o);
-      cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
-    }
+    const float2 mn = tile_mean<kTile, kTile>(cr, cc, ty, tx, hpix, wpix, lane);
     if (lane == 0) {
-      mean[0] = cnt > 0.f ? sr / cnt : -1e9f;
-      mean[1] = cnt > 0.f ? sc / cnt : -1e9f;
+      mean[0] = mn.x;
+      mean[1] = mn.y;
     }
   }
   // the tile's f0 (bf16, 4 x 16 bytes a pixel), zero outside the grid
@@ -180,8 +126,8 @@ corr_window_bwd_kernel(const __nv_bfloat16* __restrict__ f0,
   for (int l = 0; l < lv.n; ++l) {
     const float div = (float)(1 << l);
     const int hl = lv.h[l], wl = lv.w[l], off = lv.off[l];
-    const int ro = (int)floorf(mean[0] / div + 0.5f) - kS / 2;
-    const int co = (int)floorf(mean[1] / div + 0.5f) - kS / 2;
+    const int ro = region_origin(mean[0], div, kS);
+    const int co = region_origin(mean[1], div, kS);
     // this level's cotangents of the thread's taps, all loads in flight
     // together
     float gv[kItems];
@@ -208,11 +154,8 @@ corr_window_bwd_kernel(const __nv_bfloat16* __restrict__ f0,
     }
     if (threadIdx.x < kPix) {
       const int p = pixel(threadIdx.x);
-      // the forward's clamp: far-away coords only need to stay far away
-      r0s[threadIdx.x] = p < 0 ? -(1 << 28)
-          : (int)fminf(fmaxf(floorf(cr[p] / div), -1e6f), 1e6f);
-      c0s[threadIdx.x] = p < 0 ? -(1 << 28)
-          : (int)fminf(fmaxf(floorf(cc[p] / div), -1e6f), 1e6f);
+      r0s[threadIdx.x] = p < 0 ? -(1 << 28) : window_cell(cr[p], div);
+      c0s[threadIdx.x] = p < 0 ? -(1 << 28) : window_cell(cc[p], div);
     }
     __syncthreads();
 
@@ -323,17 +266,16 @@ extern "C" int corr_window_bwd(const void* f0, const void* f1cat,
   const int wpix = level_meta[3 * n_levels];
   if (wpix < 1 || hw % wpix != 0) return (int)cudaErrorInvalidValue;
   if (b == 0 || hw == 0) return (int)cudaSuccess;
-  Levels lv = {};
-  lv.n = n_levels;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = level_meta[3 * l];
-    lv.w[l] = level_meta[3 * l + 1];
-    lv.off[l] = level_meta[3 * l + 2];
+  const Levels lv = levels_from_meta(n_levels, level_meta);
+  // once per process: the footprint is fixed
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        corr_window_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      corr_window_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmem);
-  if (err != cudaSuccess) return (int)err;
   const int tiles =
       ((hw / wpix + kTile - 1) / kTile) * ((wpix + kTile - 1) / kTile);
   dim3 blocks(tiles, c / kCh, b);

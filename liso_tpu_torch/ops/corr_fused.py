@@ -187,7 +187,8 @@ def _fused_corr_window_fwd(f0, f1cat, coords_t, levels, radius, plain):
     if (
         f1cat.shape != (b, levels.total, c)
         or coords_t.shape != (b, 2, hw)
-        or c % 8 != 0
+        or c not in (16, 32, 64, 128, 256)
+        or hw != levels.logical[0][0] * levels.logical[0][1]
     ):
         raise ValueError(
             f"f0 {tuple(f0.shape)}, f1cat {tuple(f1cat.shape)} "
@@ -197,10 +198,10 @@ def _fused_corr_window_fwd(f0, f1cat, coords_t, levels, radius, plain):
     f0 = f0.to(torch.bfloat16).contiguous()
     f1cat = f1cat.to(torch.bfloat16).contiguous()
     coords_t = coords_t.to(torch.float32).contiguous()
-    if f1cat.data_ptr() % 16:
-        raise ValueError("f1cat must be 16-byte aligned")
+    if f0.data_ptr() % 16 or f1cat.data_ptr() % 16:
+        raise ValueError("f0 and f1cat must be 16-byte aligned")
     nl = len(levels.shapes)
-    meta = _level_meta(levels)
+    meta = _level_meta(levels, levels.logical[0][1])
     out = torch.empty(b, nl * 64, hw, dtype=torch.float32, device=dev)
     fn = kernels.function("corr_window_fwd")
     kernels.check(
@@ -344,7 +345,9 @@ def fused_corr_window(
 ):
     """Raw window taps; same contract as `fused_corr_window_plain`. f0 is
     rounded to bf16 first, as the TPU kernel does. Differentiable in f0
-    and f1cat (see the module docstring)."""
+    and f1cat (see the module docstring). The HW pixels form the grid of
+    f1cat's first level (`levels.logical[0]`), row-major: the kernels take
+    2-D tiles of them."""
     return _FusedCorrWindow.apply(f0, f1cat, coords_t, levels, radius, plain)
 
 

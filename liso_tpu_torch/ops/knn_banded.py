@@ -4,7 +4,9 @@ liso_tpu/ops/knn_pallas.py).
 `nn_1_sorted` launches the CUDA kernel `kernels/knn_banded.cu` (K6) for
 CUDA tensors and runs its plain version, the exact brute force `nn_1` of
 ops/knn.py, for CPU tensors; on the card the plain version runs only when
-the caller passes `plain=True`.
+the caller passes `plain=True`. `nn_1_sorted_band_plain` is the function
+the kernel computes, exact 1-NN over each chunk's band of refs: the card
+checks hold the kernel to it on every query.
 
 Approximation contract of the kernel (`knn_pallas.py:13-17`): both clouds
 are sorted ascending in x (x-major cell order qualifies); a chunk of 512
@@ -26,6 +28,7 @@ from liso_tpu_torch.ops.knn import BIG, nn_1
 
 _QC = 512  # queries per chunk
 _RT = 1024  # refs per tile
+_SUB = 32  # refs per sub-tile of the kernel's x bounds
 
 
 def nn_1_sorted_plain(q, refs, q_valid, r_valid):
@@ -78,31 +81,104 @@ def band_ranges(q, qpen, refs, rpen, margin: float):
     return torch.stack([t_lo, t_hi], dim=-1).to(torch.int32)
 
 
-def _nn1_kernel(q, refs, q_valid, r_valid, margin):
+def nn_1_sorted_band_plain(q, refs, q_valid, r_valid, margin: float = 8.0):
+    """What the kernel computes: per 512-query chunk the exact fp32 1-NN
+    over the refs of its band (`band_ranges`), first argmin of the metric
+    |q|^2 + (|r|^2 + pen - 2 q.r), one chunk at a time. Invalid queries,
+    and queries whose band is empty, get (BIG, 0). q [B, Nq, >=3], refs
+    [B, Nr, >=3] -> (sq_dist [B, Nq] fp32, idx [B, Nq] int32)."""
+    q = q[..., :3].float()
+    r = refs[..., :3].float()
+    qpen = torch.where(q_valid, 0.0, BIG)
+    rpen = torch.where(r_valid, 0.0, BIG)
+    ranges = band_ranges(q, qpen, r, rpen, margin).tolist()
+    b, nq, _ = q.shape
+    nr = r.shape[1]
+    d = torch.full((b, nq), BIG, device=q.device)
+    idx = torch.zeros(b, nq, dtype=torch.int64, device=q.device)
+    r2pen = (r * r).sum(-1) + rpen
+    for bi in range(b):
+        for ci, (lo, hi) in enumerate(ranges[bi]):
+            s, e = ci * _QC, min((ci + 1) * _QC, nq)
+            ref = slice(lo * _RT, min(hi * _RT, nr))
+            if ref.start >= ref.stop or s >= e:
+                continue
+            qc = q[bi, s:e]
+            sq = ((qc * qc).sum(-1)[:, None]
+                  + (r2pen[bi, ref][None] - 2.0 * qc @ r[bi, ref].T))
+            best, arg = sq.min(-1)
+            upd = best < d[bi, s:e]
+            d[bi, s:e] = torch.where(upd, best, d[bi, s:e])
+            idx[bi, s:e] = torch.where(upd, arg + ref.start, idx[bi, s:e])
+    d = torch.where(q_valid, d.clamp(min=0.0), BIG)
+    return d, torch.where(q_valid, idx, 0).to(torch.int32)
+
+
+def sub_tile_bounds(rx, r_valid, nr_pad: int):
+    """The kernel's x bounds per 32-ref sub-tile of the padded refs, over
+    the valid refs' x: (suffix minimum of the minima from sub-tile s to the
+    end, +inf where no valid ref follows; prefix maximum of the maxima up
+    to s, -inf where none precedes), each fp32 [B, Nr_pad / 32]."""
+    b, nr = rx.shape
+    pad = (0, nr_pad - nr)
+    lo = torch.nn.functional.pad(
+        torch.where(r_valid, rx, float("inf")), pad, value=float("inf"))
+    hi = torch.nn.functional.pad(
+        torch.where(r_valid, rx, float("-inf")), pad, value=float("-inf"))
+    lo = lo.reshape(b, -1, _SUB).amin(-1)
+    hi = hi.reshape(b, -1, _SUB).amax(-1)
+    suf_min = lo.flip(-1).cummin(-1).values.flip(-1)
+    pre_max = hi.cummax(-1).values
+    return suf_min.contiguous(), pre_max.contiguous()
+
+
+def kernel_inputs(q, refs, q_valid, r_valid, margin: float):
+    """The kernel's device inputs: q [B, Nq, 3] fp32, q_valid as uint8,
+    ref rows (x, y, z, |r|^2 + pen) padded to a multiple of 1024 with pad
+    rows at coords 0 and BIG, the band's tile ranges, the sub-tile x
+    bounds (`sub_tile_bounds`) and Nr_pad."""
     dev = q.device
     if refs.device != dev or q_valid.device != dev or r_valid.device != dev:
         raise ValueError("q, refs and the masks must lie on one CUDA device")
-    b, nq, _ = q.shape
     nr = refs.shape[1]
     q = q[..., :3].to(torch.float32).contiguous()
     r = refs[..., :3].to(torch.float32)
     qpen = torch.where(q_valid, 0.0, BIG)
     rpen = torch.where(r_valid, 0.0, BIG)
-    ranges = band_ranges(q, qpen, r, rpen, margin)
     nr_pad = -(-nr // _RT) * _RT
-    # ref rows (x, y, z, |r|^2 + pen); pad rows at coords 0 with BIG
     rows = torch.cat([r, ((r * r).sum(-1) + rpen)[..., None]], dim=-1)
     rows = torch.nn.functional.pad(rows, (0, 0, 0, nr_pad - nr))
     rows[:, nr:, 3] = BIG
-    rows = rows.contiguous()
+    return {
+        "q": q,
+        "q_valid": q_valid.to(torch.uint8).contiguous(),
+        "rows": rows.contiguous(),
+        "ranges": band_ranges(q, qpen, r, rpen, margin),
+        "bounds": sub_tile_bounds(r[..., 0], r_valid, nr_pad),
+        "nr_pad": nr_pad,
+    }
+
+
+def _nn1_kernel(q, refs, q_valid, r_valid, margin, visited=None):
+    dev = q.device
+    if visited is not None and (visited.device != dev
+                                or visited.dtype != torch.int64
+                                or visited.numel() != 1):
+        raise ValueError("visited must be one int64 on the queries' device")
+    b, nq, _ = q.shape
+    nr = refs.shape[1]
+    x = kernel_inputs(q, refs, q_valid, r_valid, margin)
+    suf_min, pre_max = x["bounds"]
     dist = torch.empty(b, nq, dtype=torch.float32, device=dev)
     idx = torch.empty(b, nq, dtype=torch.int32, device=dev)
     fn = kernels.function("knn_banded")
     kernels.check(
         fn(
-            q.data_ptr(), rows.data_ptr(), ranges.data_ptr(), dist.data_ptr(),
-            idx.data_ptr(), b, nq, nr_pad,
-            torch.cuda.current_stream(dev).cuda_stream,
+            x["q"].data_ptr(), x["q_valid"].data_ptr(), x["rows"].data_ptr(),
+            x["ranges"].data_ptr(), suf_min.data_ptr(), pre_max.data_ptr(),
+            dist.data_ptr(), idx.data_ptr(),
+            None if visited is None else visited.data_ptr(),
+            b, nq, x["nr_pad"], torch.cuda.current_stream(dev).cuda_stream,
         ),
         "knn_banded",
     )
@@ -113,13 +189,16 @@ def _nn1_kernel(q, refs, q_valid, r_valid, margin):
 
 
 def nn_1_sorted(q, refs, q_valid, r_valid, margin: float = 8.0,
-                plain: bool = False):
+                plain: bool = False, visited: torch.Tensor | None = None):
     """Batched 1-NN for x-sorted clouds (see the module docstring).
     q [B, Nq, >=3], refs [B, Nr, >=3], bool masks -> (sq_dist [B, Nq] fp32,
-    idx [B, Nq] int32); invalid queries get (BIG, 0)."""
+    idx [B, Nq] int32); invalid queries get (BIG, 0). `visited`, a
+    one-element int64 tensor on the card, receives the count of (valid
+    query, ref) pairs the kernel tested (a measurement; the plain version
+    leaves it as it is)."""
     if plain or q.device.type == "cpu":
         return nn_1_sorted_plain(q, refs, q_valid, r_valid)
-    return _nn1_kernel(q, refs, q_valid, r_valid, margin)
+    return _nn1_kernel(q, refs, q_valid, r_valid, margin, visited)
 
 
 def contract_report(q, refs, q_valid, r_valid, margin, d, idx, d_exact,

@@ -85,6 +85,58 @@ def test_corr_window_fwd_within_one_ulp(gen, h, c):
     assert bool((got[:, :, :3] == 0).all())
 
 
+def _grid_coords(h, w, b=1):
+    return torch.stack(torch.meshgrid(
+        torch.arange(h, device="cuda"), torch.arange(w, device="cuda"),
+        indexing="ij")).float().reshape(1, 2, h * w).repeat(b, 1, 1)
+
+
+@pytest.mark.parametrize(
+    "case,h,c",
+    [
+        ("sigma_0", 64, 128),  # every tap in its tile's region
+        ("sigma_2", 64, 32),
+        ("sigma_8", 64, 128),  # many level-0 taps on the warp path
+        ("level_edge", 40, 128),  # windows straddle every level's edge
+        ("all_far_out", 64, 128),
+        ("sigma_2", 115, 128),  # the SLIM grid: ragged edge tiles
+        ("sigma_2", 115, 32),
+    ],
+)
+def test_corr_window_fwd_layouts(gen, case, h, c):
+    """K2's tile regions: flows of sigma 0, 2 and 8 px, tiles whose windows
+    straddle a level's edge, every coord far out, the ragged 115 x 115
+    grid, C = 32 and 128. Within one bf16 ulp plus the fp32 sum-order
+    slack of the plain version; every out-of-range tap exactly 0."""
+    b = 2
+    f0 = torch.randn(b, h * h, c, generator=gen, device="cuda")
+    f1cat, lv = corr_fused.pool_f1_levels(
+        torch.randn(b, h, h, c, generator=gen, device="cuda"), 4)
+    base = _grid_coords(h, h, b)
+    noise = torch.randn(b, 2, h * h, generator=gen, device="cuda")
+    if case == "all_far_out":
+        coords = torch.where(noise < 0, -1e5, 3e4)
+    elif case == "level_edge":
+        coords = base * (h + 10) / h - 5 + 0.5 * noise
+    else:
+        coords = base + float(case.split("_")[1]) * noise
+    before = kernels.launches["corr_window_fwd"]
+    got = corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3)
+    assert kernels.launches["corr_window_fwd"] == before + 1
+    want = corr_fused.fused_corr_window(f0, f1cat, coords, lv, 3, plain=True)
+    torch.cuda.synchronize()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    slack = corr_fused.sum_order_slack(f0, f1cat, coords, lv, 3)
+    assert bool(((got - want).abs() <= ulp * 1.0001 + slack).all())
+    ok = torch.cat([corr_fused._window_cells(coords, lv, 3, lvl)[1]
+                    for lvl in range(len(lv.shapes))], dim=-1).transpose(1, 2)
+    assert bool((got[~ok] == 0).all())
+    if case == "all_far_out":
+        assert not bool(ok.any())
+    else:
+        assert bool(ok.any()) and float(got.abs().max()) > 0
+
+
 def test_serving_path_kernels_vs_plain(gen):
     """The whole slice at a small size, fp32: kernel path vs plain path."""
     _, slim, det = serve.build_models(grid=64, num_iters=2, device="cuda")
@@ -304,6 +356,80 @@ def test_knn_banded_contract(gen):
     assert rep["below_exact"] == 0 and rep["in_band_mismatch"] == 0, rep
     assert rep["in_band"] > 0.9 * int(qv.sum()), rep
     assert bool((d[:, -512:][qv[:, -512:]] == knn_banded.BIG).all())
+    # every valid query against the exact search of its band
+    db, ib = knn_banded.nn_1_sorted_band_plain(q, refs, qv, rv, 8.0)
+    band = knn_banded.contract_report(q, refs, qv, rv, float("inf"), d, idx,
+                                      db, ib)
+    assert band["below_exact"] == 0 and band["in_band_mismatch"] == 0, band
+
+
+def _cell_sorted(pts, res=0.5):
+    """Rows sorted by BEV cell, x-major (a stable sort, as the trainer's):
+    within one x-row of cells x is not monotone."""
+    rc = torch.floor((pts[..., :2] + 60.0) / res).long()
+    inside = ((rc >= 0) & (rc < int(120 / res))).all(-1)
+    cell = torch.where(inside, rc[..., 0] * 100000 + rc[..., 1], 10**12)
+    perm = torch.sort(cell, dim=-1, stable=True).indices
+    return torch.gather(pts, 1, perm[..., None].expand(-1, -1, pts.shape[-1]))
+
+
+@pytest.mark.parametrize(
+    "case", ["cell_sorted", "duplicates", "beyond_band", "far_coords"])
+def test_knn_banded_matches_band_oracle(gen, case):
+    """K6 against the exact search of each chunk's band
+    (nn_1_sorted_band_plain) on every valid query, B = 2: cell-sorted
+    clouds (x not monotone within a cell row; points outside the grid
+    trail); duplicate refs and queries on refs (exact ties, lowest index);
+    a query chunk beyond the band (d = BIG); queries at |coords| ~ 60 m
+    with sparse refs, neighbours 5-8 m away, so the early stop meets the
+    band's edge."""
+    b, nq = 2, 8192
+    nr = 512 if case == "far_coords" else 8192  # sparse: neighbours 5-8 m off
+    refs = (torch.rand(b, nr, 3, generator=gen, device="cuda") - 0.5) * 116
+    refs[:, -64:, :2] *= 1.5  # outside the grid: sorted to the tail
+    if case == "duplicates":
+        refs[:, 1::2] = refs[:, 0::2]
+    refs = _cell_sorted(refs)
+    if case == "far_coords":  # |x| in [50, 60] m
+        q = (torch.rand(b, nq, 3, generator=gen, device="cuda") - 0.5) * 116
+        u = torch.rand(b, nq, generator=gen, device="cuda")
+        q[..., 0] = torch.where(u < 0.5, -50 - 20 * u, 50 + 20 * (u - 0.5))
+    else:
+        pick = torch.randint(0, nr, (b, nq), generator=gen, device="cuda")
+        q = torch.gather(refs, 1, pick[..., None].expand(-1, -1, 3))
+        noise = 0.3 * torch.randn(q.shape, generator=gen, device="cuda")
+        if case == "duplicates":
+            noise[:, ::5] = 0.0  # exactly on a duplicated ref
+        q = q + noise
+    q = _cell_sorted(q)
+    if case == "beyond_band":  # past every ref, the grid's trailing ones too
+        q[:, -512:, 0] += 200.0
+    qv = torch.rand(b, nq, generator=gen, device="cuda") > 0.05
+    rv = torch.rand(b, nr, generator=gen, device="cuda") > 0.02
+    visited = torch.zeros(1, dtype=torch.int64, device="cuda")
+    before = kernels.launches["knn_banded"]
+    d, idx = knn_banded.nn_1_sorted(q, refs, qv, rv, visited=visited)
+    assert kernels.launches["knn_banded"] == before + 1
+    db, ib = knn_banded.nn_1_sorted_band_plain(q, refs, qv, rv, 8.0)
+    rep = knn_banded.contract_report(q, refs, qv, rv, float("inf"), d, idx,
+                                     db, ib)
+    assert rep["below_exact"] == 0 and rep["in_band_mismatch"] == 0, rep
+    if case == "duplicates":
+        # of two identical valid refs (adjacent after the stable sort) the
+        # lower index wins
+        i = idx.long()
+        r_at = torch.gather(refs, 1, i[..., None].expand(-1, -1, 3))
+        r_prev = torch.gather(refs, 1, (i - 1).clamp(min=0)[..., None].expand(-1, -1, 3))
+        twin = (i > 0) & (r_prev == r_at).all(-1) & torch.gather(
+            rv, 1, (i - 1).clamp(min=0))
+        assert not bool((twin & qv).any())
+    if case == "beyond_band":
+        assert bool((d[:, -512:][qv[:, -512:]] == knn_banded.BIG).all())
+    qpen = torch.where(qv, 0.0, knn_banded.BIG)
+    rpen = torch.where(rv, 0.0, knn_banded.BIG)
+    ranges = knn_banded.band_ranges(q, qpen, refs, rpen, 8.0)
+    tile_pairs = int((ranges[..., 1] - ranges[..., 0]).sum()) * 1024 * 512
+    assert 0 < int(visited) <= tile_pairs
 
 
 def test_train_step_kernels_vs_plain(gen):

@@ -1,12 +1,14 @@
 """Kernel K6's plain version and its band (liso_tpu_torch/ops/knn.py,
 liso_tpu_torch/ops/knn_banded.py) against liso_tpu: the exact brute force
 `nn_1` against JAX's `nn_1`, the banded search against the Pallas kernel
-`nn_1_sorted` in interpret mode (the band computed by the port's
-`band_ranges`, searched exactly as the CUDA kernel does, here in PyTorch),
+`nn_1_sorted` in interpret mode (`nn_1_sorted_band_plain`, the exact
+search over the band of the port's `band_ranges`: the function the CUDA
+kernel computes, and its oracle on the card),
 and the fixed-neighbour gradient against JAX's gradient through `nn_1` (the
 JAX CPU path of the SLIM loss). The CUDA kernel is held to its plain
 version on the card (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -59,35 +61,6 @@ def test_nn_1_matches_jax():
     assert (got_i.numpy()[~qv[0]] == 0).all()
 
 
-def _banded_search(q, qv, r, rv, margin):
-    """The CUDA kernel's search in PyTorch: each 512-query chunk visits the
-    ref tiles of `band_ranges`, first argmin of the kernel's metric."""
-    qpen = torch.where(qv, 0.0, BIG)
-    rpen = torch.where(rv, 0.0, BIG)
-    ranges = kb.band_ranges(q, qpen, r, rpen, margin)
-    b, nq, _ = q.shape
-    nr = r.shape[1]
-    d = torch.full((b, nq), BIG)
-    idx = torch.zeros(b, nq, dtype=torch.int64)
-    r2pen = (r * r).sum(-1) + rpen
-    for bi in range(b):
-        for ci in range(ranges.shape[1]):
-            lo, hi = (int(x) for x in ranges[bi, ci])
-            s, e = ci * kb._QC, min((ci + 1) * kb._QC, nq)
-            ref = slice(lo * kb._RT, min(hi * kb._RT, nr))
-            if ref.start >= ref.stop or s >= e:
-                continue
-            qc = q[bi, s:e]
-            sq = ((qc * qc).sum(-1)[:, None]
-                  + (r2pen[bi, ref][None] - 2.0 * qc @ r[bi, ref].T))
-            best, arg = sq.min(-1)
-            upd = best < d[bi, s:e]
-            d[bi, s:e] = torch.where(upd, best, d[bi, s:e])
-            idx[bi, s:e] = torch.where(upd, arg + ref.start, idx[bi, s:e])
-    d = torch.where(qv, d.clamp(min=0.0), BIG)
-    return d, torch.where(qv, idx, 0)
-
-
 def test_band_matches_pallas_kernel():
     """Every query, in band or not: the Pallas kernel and the port's band
     visit the same tiles, so distances agree to the fp32 metric's rounding
@@ -98,7 +71,7 @@ def test_band_matches_pallas_kernel():
     want_d, want_i = map(np.asarray, j_nn_1_sorted(
         jnp.asarray(q), jnp.asarray(r), jnp.asarray(qv), jnp.asarray(rv),
         interpret=True))
-    got_d, got_i = _banded_search(_t(q), _t(qv), _t(r), _t(rv), 8.0)
+    got_d, got_i = kb.nn_1_sorted_band_plain(_t(q), _t(r), _t(qv), _t(rv), 8.0)
     got_d, got_i = got_d.numpy(), got_i.numpy()
     np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=2e-3)
     assert (got_i == want_i).mean() > 0.999
@@ -148,3 +121,42 @@ def test_fixed_neighbour_gradient_matches_jax_cpu_path():
     d = kb.nn_1_sorted_diff(tq, _t(r), _t(qv), _t(rv))
     (torch.where(_t(qv), d, 0.0) * _t(w)).sum().backward()
     np.testing.assert_allclose(tq.grad.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_band_plain_equals_exact_search_when_the_band_covers_all():
+    """With a margin wider than the clouds every chunk's band holds every
+    valid ref, so the band oracle is the exact search (up to fp32
+    near-ties between the chunked and the whole-cloud sums)."""
+    q, qv, r, rv = _clouds(b=2, nq=1024, nr=2048, seed=5)
+    got_d, got_i = kb.nn_1_sorted_band_plain(_t(q), _t(r), _t(qv), _t(rv),
+                                             margin=1e4)
+    want_d, want_i = kb.nn_1_sorted_plain(_t(q), _t(r), _t(qv), _t(rv))
+    rep = kb.contract_report(_t(q), _t(r), _t(qv), _t(rv), float("inf"),
+                             got_d, got_i, want_d, want_i)
+    assert rep["below_exact"] == 0 and rep["in_band_mismatch"] == 0, rep
+    assert (got_i.numpy() == want_i.numpy()).mean() > 0.999
+    assert (got_d.numpy()[~qv] == BIG).all() and (got_i.numpy()[~qv] == 0).all()
+
+
+@pytest.mark.parametrize("layout", ["sorted", "shuffled", "sparse_valid"])
+def test_sub_tile_bounds(layout):
+    """The kernel's stop bounds: per 32-ref sub-tile, the suffix minimum of
+    the valid refs' x from that sub-tile on and the prefix maximum up to
+    it (+inf / -inf where no valid ref lies there), padding invalid."""
+    rng = np.random.RandomState(7)
+    b, nr = 2, 2000
+    x = np.sort(rng.uniform(-50, 50, (b, nr)).astype(np.float32), -1)
+    if layout == "shuffled":  # x not monotone within each 40-ref run
+        x = x.reshape(b, -1, 40)[..., rng.permutation(40)].reshape(b, nr)
+    valid = rng.rand(b, nr) > (0.9 if layout == "sparse_valid" else 0.1)
+    nr_pad = 2048
+    suf_min, pre_max = kb.sub_tile_bounds(_t(x), _t(valid), nr_pad)
+    assert suf_min.shape == pre_max.shape == (b, nr_pad // 32)
+    xv = np.full((b, nr_pad), np.nan, np.float32)
+    xv[:, :nr] = np.where(valid, x, np.nan)
+    for bi in range(b):
+        for s in range(nr_pad // 32):
+            after, before = xv[bi, s * 32:], xv[bi, :(s + 1) * 32]
+            lo = np.nanmin(after) if np.isfinite(after).any() else np.inf
+            hi = np.nanmax(before) if np.isfinite(before).any() else -np.inf
+            assert suf_min[bi, s].item() == lo and pre_max[bi, s].item() == hi

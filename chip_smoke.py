@@ -580,8 +580,6 @@ def phase_kernels():
     got, want, err, ulp, slack = check_corr_fwd(f0, f1cat, coords, lv,
                                                 "the check's layout")
     beyond = err > ulp  # only where a dot cancels: see sum_order_slack
-    if not bool((got[:, :, :128] == 0).all()):
-        fail("K2 corr_window_fwd: out-of-range taps are not exactly 0")
     in_range = want != 0  # taps with a real dot (an in-range dot of 0 is rare)
     k2_bytes = (f0.numel() * 2 + f1cat.numel() * 2 + coords.numel() * 4
                 + got.numel() * 4)
@@ -882,8 +880,9 @@ def phase_train_kernels(trainer, batch):
     tile_pairs = int((ranges[..., 1] - ranges[..., 0]).sum()) * 1024 * 512
     # the work this run's data needs: the (valid query, ref) pairs the
     # kernel's sweep tested (its own count), 3 FMAs (6 flop) each for the
-    # distance; PR 6's bound (band_bound_ms) counted the valid pairs within
-    # the 8 m x-band, and the tile-band bound every pair of the band's tiles
+    # distance; the full-band design's bound (band_bound_ms) counted the
+    # valid pairs within the 8 m x-band, and the tile-band bound every pair
+    # of the band's tiles
     rx = torch.sort(refs[0, rv[0], 0]).values
     qx = q[0, qv[0], 0]
     pairs = int((torch.searchsorted(rx, qx + 8.0, right=True)

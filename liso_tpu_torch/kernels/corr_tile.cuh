@@ -4,10 +4,11 @@
 // of cells.
 //
 // A block takes a 2-D tile of pixels. Its pixels' windows fall mostly in
-// one region of cells of each level, centred on the mean of the tile's
-// coords; both kernels form the tile's products over that region on the
-// tensor cores, as the TPU kernels form them over the whole level, and
-// take any tap in range but outside the region on a slower path.
+// one region of cells of each level: centred on the mean of the tile's
+// coords (the backward; the forward where the box of the tile's windows
+// is too large); both kernels form the tile's products over that region
+// on the tensor cores, as the TPU kernels form them over the whole level,
+// and take any tap in range but outside the region on a slower path.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

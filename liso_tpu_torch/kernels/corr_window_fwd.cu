@@ -9,18 +9,19 @@
 //
 // The TPU kernel computes the corr block f1cat @ f0_tile^T of a pixel tile
 // over the whole level and reads the taps out of it. Here a block takes a
-// tile of 8 x 8 pixels and, one level at a time, a region of at most
-// 20 x 20 cells centred on the tile's mean coords and clamped to the
-// level's padded extent (levels of 20 x 20 cells or fewer fit whole); the
-// region code is the backward's (corr_tile.cuh). The block stages the
-// tile's f0 rows once and the region's f1cat rows in chunks of 64 cells,
-// all channels, in shared memory as bf16 (asynchronous copies, two
-// buffers: the next chunk's copies fly while this one's product is
-// formed), and forms the product
-// [64 pixels] x [region cells] on the tensor cores (mma.sync m16n8k16,
-// bf16 in, fp32 sums). Each product is scaled and rounded to bf16 into a
-// [64 pixels, region] block in shared memory, and each pixel's in-region
-// taps are read from it. A tap in range but outside the region (a large or
+// tile of 8 x 8 pixels and, one level at a time, a region of cells: the
+// bounding box of the tile's in-range window cells where it holds at most
+// 20 x 20 cells (at smooth flow about 16 x 16 at level 0, 11 x 11 at level
+// 1), else 20 x 20 cells centred on the tile's mean coords (the backward's
+// region, corr_tile.cuh), always inside the level's padded extent. The
+// block stages the tile's f0 rows once and the region's f1cat rows in
+// chunks of 64 cells, all channels, in shared memory as bf16 (asynchronous
+// copies, two buffers: the next chunk's copies fly while this one's
+// product is formed), and forms the product [64 pixels] x [region cells]
+// on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums). Each
+// product is scaled and rounded to bf16 into a [64 pixels, region] block
+// in shared memory, and each pixel's in-region taps are read from it, a
+// window row a thread. A tap in range but outside the region (a large or
 // scattered flow) goes to a queue in shared memory; once the level's
 // in-region taps are written, each thread takes queued taps and sums each
 // over all channels from f1cat in device memory, its 16-byte loads in
@@ -30,10 +31,10 @@
 //
 // Bound: bytes. At the serving width (B=8, HW=4096, C=128, M=5440, L=4) a
 // lookup reads 8 MB of f0 and 11 MB of f1cat and writes 34 MB of taps. The
-// region rows come from L2: about 1120 cells of 256 bytes per tile (147
-// MB per call at serving, where the warp-per-pixel kernel this replaces
-// read 2.1 GB), and the dense products over the regions are about 9
-// GFLOP on the tensor cores.
+// region rows come from L2: at smooth flow about 520 cells of 256 bytes
+// per tile, 70 MB per call (the warp-per-pixel kernel this replaces read
+// 2.1 GB), and the dense products over the regions are about 5 GFLOP on
+// the tensor cores.
 //
 // The tile and region shape are compile-time constants; the defaults are
 // the measured choice (PERF.md), and CORR_FWD_TILE_H / _TILE_W /

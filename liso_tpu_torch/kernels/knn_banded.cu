@@ -49,12 +49,13 @@
 //
 // Bound: operations, on the pairs the sweep tests. Each pair costs 3 FMAs,
 // a compare and two selects, and each 16-byte shared load of a ref serves
-// a lane's four queries. The tensor cores would not help: the compare and
-// the selects, not the 3-term dot, set the pace. At the train step's width
-// (18 * 65536 queries against 65536 refs, an x-band of about 17 m over a
-// 116 m cloud) the sweep tests about 0.4 of the band's 1.3e10 pairs.
-// `visited`, when not null, receives the count of (valid query, ref) pairs
-// tested.
+// a lane's four queries: 6.4 issued instructions a pair in the SASS. The
+// tensor cores would not help: a pair's dot has 3 terms, and its compare
+// and selects stay on the regular cores. At the train step's width (18 *
+// 65536 queries against 65536 refs, an x-band of about 17 m over a 116 m
+// cloud) the sweep tests 0.39 of the band's 1.3e10 pairs and issues at
+// about 60% of the card's rate (PERF.md). `visited`, when not null,
+// receives the count of (valid query, ref) pairs tested.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>

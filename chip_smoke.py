@@ -420,64 +420,6 @@ def check_corr_fwd(f0, f1cat, coords, lv, layout):
     return got, want, err, ulp, slack
 
 
-def k2_side_taps(coords, lv, tile=(8, 8), region=(20, 20)):
-    """Per level, the share of K2's in-range taps that lie outside their
-    pixel tile's region and take the kernel's slower per-tap path: the
-    kernel's region rule (corr_window_fwd.cu: the box of the tile's
-    in-range window cells where it holds at most 20 x 20 cells, else 20 x 20
-    cells around the tile's mean coords) in PyTorch, sums in another
-    order."""
-    import torch
-
-    b = coords.shape[0]
-    h, w = lv.logical[0]
-    th, tw = tile
-    hp, wp = -(-h // th) * th, -(-w // tw) * tw
-    c = torch.nn.functional.pad(coords.reshape(b, 2, h, w),
-                                (0, wp - w, 0, hp - h), value=float("nan"))
-    real = ~torch.isnan(c[:, 0])
-    cr, cc = torch.nan_to_num(c[:, 0], nan=-1e9), torch.nan_to_num(c[:, 1], nan=-1e9)
-    near = real & (cr > -16) & (cr < h + 16) & (cc > -16) & (cc < w + 16)
-
-    def per_tile(x, op):  # reduce over each tile, then back to pixels
-        t = x.reshape(b, hp // th, th, wp // tw, tw)
-        t = op(op(t, 4), 2)
-        return t.repeat_interleave(th, 1).repeat_interleave(tw, 2)
-
-    cnt = per_tile(near.float(), lambda t, d: t.sum(d))
-    mean = [torch.where(cnt > 0, per_tile(torch.where(near, x, 0.0),
-                                          lambda t, d: t.sum(d)) / cnt.clamp(min=1),
-                        -1e9) for x in (cr, cc)]
-    d = torch.arange(-3, 5, device=coords.device)
-    shares = []
-    for lvl, (hl, wl) in enumerate(lv.shapes):
-        div = 2.0**lvl
-        x0 = [torch.floor(x / div).clamp(-1e6, 1e6) for x in (cr, cc)]
-        lo = [(x - 3).clamp(min=0) for x in x0]
-        hi = [torch.minimum(x + 4, torch.full_like(x, e - 1)) for x, e in zip(x0, (hl, wl))]
-        anyin = real & (lo[0] <= hi[0]) & (lo[1] <= hi[1])
-        big = 1e9
-        blo = [per_tile(torch.where(anyin, v, big), lambda t, dd: t.amin(dd)) for v in lo]
-        bhi = [per_tile(torch.where(anyin, v, -big), lambda t, dd: t.amax(dd)) for v in hi]
-        ext = [bh - bl + 1 for bl, bh in zip(blo, bhi)]
-        fits = (ext[0] * ext[1] <= region[0] * region[1]) & (blo[0] <= bhi[0])
-        counts = []
-        for k, (e, size) in enumerate(((hl, region[0]), (wl, region[1]))):
-            rs = min(size, e)
-            o_mean = (torch.floor(mean[k] / div + 0.5) - rs // 2).clamp(0, e - rs)
-            o = torch.where(fits, blo[k], o_mean)
-            n = torch.where(fits, ext[k], torch.full_like(o, rs))
-            cells = x0[k][..., None] + d
-            ok = (cells >= 0) & (cells < e)
-            inr = ok & (cells >= o[..., None]) & (cells < (o + n)[..., None])
-            counts.append((ok.sum(-1), inr.sum(-1)))
-        (rk, rin), (ck, cin) = counts
-        in_range = torch.where(real, rk * ck, 0).sum()
-        side = torch.where(real, rk * ck - rin * cin, 0).sum()
-        shares.append(float(side) / max(float(in_range), 1.0))
-    return shares
-
-
 def step_corr_lookups(serve, slim, det, fmap, cn, pts, valid):
     """The inputs of K2's launches in one fused_streaming step (one per
     RAFT iteration), captured by wrapping corr_fused.fused_corr_window."""
@@ -532,7 +474,6 @@ def serving_step_layout(lookups):
               + f0.shape[0] * len(lv.shapes) * 64 * f0.shape[1] * 4)
     return {
         "lookups": n,
-        "outside_region_share": [k2_side_taps(c, lv) for _, _, c, lv in lookups],
         "flow_px_mean": [float(f.mean()) for f in flow_px],
         "flow_px_max": [float(f.max()) for f in flow_px],
         "max_abs_err": max(errs),
@@ -603,7 +544,6 @@ def phase_kernels():
         "library_ms": None,
         "bytes": k2_bytes,
         "flop": k2_ops,
-        "outside_region_share": k2_side_taps(coords, lv),
         "taps_beyond_one_ulp": int(beyond.sum()),
         "taps": got.numel(),
         "max_abs_value_where_beyond_one_ulp": float(want[beyond].abs().max())
@@ -878,17 +818,20 @@ def phase_train_kernels(trainer, batch):
     rpen = torch.where(rv, 0.0, knn_banded.BIG)
     ranges = knn_banded.band_ranges(q, qpen, refs, rpen, 8.0)
     tile_pairs = int((ranges[..., 1] - ranges[..., 0]).sum()) * 1024 * 512
-    # the work this run's data needs: the (valid query, ref) pairs the
-    # kernel's sweep tested (its own count), 3 FMAs (6 flop) each for the
-    # distance; the full-band design's bound (band_bound_ms) counted the
-    # valid pairs within the 8 m x-band, and the tile-band bound every pair
-    # of the band's tiles
+    # the work this run's data needs (knn_banded.needed_pairs): per valid
+    # query, the valid refs of its band within the kernel's stop radius at
+    # the exact answer, 3 FMAs (6 flop) each for the distance. The pairs the
+    # kernel tested (visited_pairs, its own count) are reported beside it.
+    # The full-band design's bound (band_bound_ms) counted the valid pairs
+    # within the 8 m x-band, the tile-band bound every pair of the band's
+    # tiles.
+    needed = knn_banded.needed_pairs(q, refs, qv, rv, db)
     rx = torch.sort(refs[0, rv[0], 0]).values
     qx = q[0, qv[0], 0]
     pairs = int((torch.searchsorted(rx, qx + 8.0, right=True)
                  - torch.searchsorted(rx, qx - 8.0)).sum())
     nbytes = q.numel() * 4 + refs.numel() * 4 + qv.numel() + rv.numel() + d.numel() * 8
-    bms, bby = bound(nbytes, visited_pairs * 6, FP32_FLOP_PER_S)
+    bms, bby = bound(nbytes, needed * 6, FP32_FLOP_PER_S)
     step = 16384
 
     def cdist_argmin():
@@ -908,12 +851,13 @@ def phase_train_kernels(trainer, batch):
             lambda: knn_banded.nn_1_sorted(q, refs, qv, rv), "knn_banded_kernel"),
         "plain_ms": cuda_ms(lambda: knn_banded.nn_1_sorted(q, refs, qv, rv, plain=True)),
         "bound_ms": bms, "bound_by": bby,
-        "visited_pairs": visited_pairs,
+        "needed_pairs": needed, "visited_pairs": visited_pairs,
+        "visited_over_needed": visited_pairs / max(needed, 1),
         "band_bound_ms": bound(nbytes, pairs * 6, FP32_FLOP_PER_S)[0],
         "library_ms": cuda_ms(cdist_argmin, reps=5, warmup=1),
         "library_call": f"torch.cdist + argmin, fp32, over {step}-query chunks "
                         "(the whole distance matrix would take 309 GB), median of 5",
-        "bytes": nbytes, "flop": visited_pairs * 6, "band_pairs": pairs,
+        "bytes": nbytes, "flop": needed * 6, "band_pairs": pairs,
         "tile_band_pairs": tile_pairs,
         "tile_band_bound_ms": bound(nbytes, tile_pairs * 6, FP32_FLOP_PER_S)[0],
         "shape": f"q [1, {18 * T_PTS}, 3], refs [1, {T_PTS}, 3] fp32 -> d, idx",
@@ -1549,7 +1493,8 @@ def main() -> int:
             "bound_by", "library_ms", "kernel_only_ms", "host_ms",
             "library_ms_prezeroed", "train_shape", "detect_train_shape",
             "skewed_layout", "slim_step_layout", "serving_step_layout",
-            "visited_pairs", "band_bound_ms", "band_agreement")
+            "needed_pairs", "visited_pairs", "visited_over_needed",
+            "band_bound_ms", "band_agreement")
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -137,4 +137,22 @@ __device__ __forceinline__ int window_cell(float v, float div) {
   return (int)fminf(fmaxf(floorf(v / div), -1e6f), 1e6f);
 }
 
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device. The attribute holds per device, so `done` keeps, per device
+// ordinal, the largest limit set so far: the call is made once per device
+// and size, not on every launch.
+constexpr int kMaxDevices = 64;
+inline cudaError_t raise_smem_limit(const void* kernel, size_t bytes,
+                                    size_t* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) done[dev] = bytes;
+  return err;
+}
+
 }  // namespace corr_tile

@@ -267,15 +267,11 @@ extern "C" int corr_window_bwd(const void* f0, const void* f1cat,
   if (wpix < 1 || hw % wpix != 0) return (int)cudaErrorInvalidValue;
   if (b == 0 || hw == 0) return (int)cudaSuccess;
   const Levels lv = levels_from_meta(n_levels, level_meta);
-  // once per process: the footprint is fixed
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        corr_window_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  // once per device: the footprint is fixed
+  static size_t smem_set[kMaxDevices] = {};
+  cudaError_t err = raise_smem_limit((const void*)corr_window_bwd_kernel,
+                                     kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
   const int tiles =
       ((hw / wpix + kTile - 1) / kTile) * ((wpix + kTile - 1) / kTile);
   dim3 blocks(tiles, c / kCh, b);

@@ -35,35 +35,20 @@
 // per tile, 70 MB per call (the warp-per-pixel kernel this replaces read
 // 2.1 GB), and the dense products over the regions are about 5 GFLOP on
 // the tensor cores.
-//
-// The tile and region shape are compile-time constants; the defaults are
-// the measured choice (PERF.md), and CORR_FWD_TILE_H / _TILE_W /
-// _REGION_H / _REGION_W build another shape for timing.
 #include <limits.h>
 
 #include "corr_tile.cuh"
-
-#ifndef CORR_FWD_TILE_H
-#define CORR_FWD_TILE_H 8
-#endif
-#ifndef CORR_FWD_TILE_W
-#define CORR_FWD_TILE_W 8
-#endif
-#ifndef CORR_FWD_REGION_H
-#define CORR_FWD_REGION_H 20
-#endif
-#ifndef CORR_FWD_REGION_W
-#define CORR_FWD_REGION_W 20
-#endif
 
 namespace {
 
 using namespace corr_tile;
 
-constexpr int kTH = CORR_FWD_TILE_H, kTW = CORR_FWD_TILE_W;
+// the tile and region shape: the measured choice (PERF.md §6 gives the
+// 4 x 16 and 2 x 32 tiles' times)
+constexpr int kTH = 8, kTW = 8;
 constexpr int kPix = kTH * kTW;
 static_assert(kPix == 64, "a tile is 64 pixels: four m16 row blocks");
-constexpr int kRH = CORR_FWD_REGION_H, kRW = CORR_FWD_REGION_W;
+constexpr int kRH = 20, kRW = 20;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 64;  // region cells staged at a time: 8 n8 tiles
@@ -312,17 +297,13 @@ extern "C" int corr_window_fwd(const void* f0, const void* f1cat,
   if (wpix < 1 || hw % wpix != 0) return (int)cudaErrorInvalidValue;
   if (b == 0 || hw == 0) return (int)cudaSuccess;
   const Levels lv = levels_from_meta(n_levels, level_meta);
-  // the shared-memory limit is raised once per process, to the largest
+  // the shared-memory limit is raised once per device, to the largest
   // footprint asked for so far (it grows with C)
-  static size_t smem_set = 0;
+  static size_t smem_set[kMaxDevices] = {};
   const size_t smem = smem_bytes(c);
-  if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        corr_window_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
-  }
+  cudaError_t err = raise_smem_limit((const void*)corr_window_fwd_kernel,
+                                     smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
   const int tiles = ((hw / wpix + kTH - 1) / kTH) * ((wpix + kTW - 1) / kTW);
   dim3 blocks(tiles, b);
   corr_window_fwd_kernel<<<blocks, kThreads, smem,

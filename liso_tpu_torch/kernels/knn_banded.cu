@@ -65,12 +65,8 @@ namespace {
 constexpr int kQC = 512;   // queries per chunk (the band's unit)
 constexpr int kRT = 1024;  // refs per tile (the band's unit)
 constexpr int kS = 32;     // refs per sub-tile: one 16-byte row a lane
-#ifndef KNN_QUERIES_PER_LANE
-#define KNN_QUERIES_PER_LANE 4
-#endif
-// queries per lane (the measured choice, PERF.md; KNN_QUERIES_PER_LANE
-// builds another count for timing)
-constexpr int kQ = KNN_QUERIES_PER_LANE;
+// queries per lane: the measured choice (PERF.md §6 gives 2 and 8)
+constexpr int kQ = 4;
 constexpr int kWQ = 32 * kQ;      // queries per warp
 constexpr int kWarps = kQC / kWQ;  // warps per chunk
 constexpr float kBig = 1e9f;

@@ -114,6 +114,51 @@ def nn_1_sorted_band_plain(q, refs, q_valid, r_valid, margin: float = 8.0):
     return d, torch.where(q_valid, idx, 0).to(torch.int32)
 
 
+def stop_radius(q, d_best):
+    """The kernel's stopping radius in x for a query at `q` [..., 3] whose
+    best squared distance so far is `d_best`: sqrt((d_best + 2^-17 |q|^2)
+    (1 + 2^-16)), the x gap beyond which no ref can beat or tie it under
+    the fp32 metric (knn_banded.cu)."""
+    q = q[..., :3].double()
+    return torch.sqrt((d_best.double() + 2.0**-17 * (q * q).sum(-1))
+                      * (1.0 + 2.0**-16))
+
+
+def needed_pairs(q, refs, q_valid, r_valid, d_exact, margin: float = 8.0) -> int:
+    """The (valid query, valid ref) pairs that an exact search of each
+    chunk's band, pruned by x alone, must test once it knows the answer:
+    per valid query, the valid refs of its band whose x lies within
+    `stop_radius(q, d_exact)` of the query's. This is the work these
+    inputs need, and the kernel's bound counts it; the kernel's own count
+    (`visited`) exceeds it by what its warp-wide cut and sub-tiles cost.
+    d_exact: the band oracle's distances (`nn_1_sorted_band_plain`)."""
+    q3 = q[..., :3].float()
+    r = refs[..., :3].float()
+    qpen = torch.where(q_valid, 0.0, BIG)
+    rpen = torch.where(r_valid, 0.0, BIG)
+    ranges = band_ranges(q3, qpen, r, rpen, margin).long()
+    b, nq, _ = q3.shape
+    nr = r.shape[1]
+    nr_pad = -(-nr // _RT) * _RT
+    # per tile, its valid refs' x sorted (+inf for the others)
+    rx = torch.nn.functional.pad(
+        torch.where(r_valid, r[..., 0], float("inf")), (0, nr_pad - nr),
+        value=float("inf")).reshape(b, -1, _RT).sort(-1).values.double()
+    rad = stop_radius(q3, d_exact)
+    qx = q3[..., 0].double()
+    lo, hi = (qx - rad).contiguous(), (qx + rad).contiguous()
+    chunk = torch.arange(nq, device=q.device) // _QC
+    t_lo, t_hi = ranges[:, chunk, 0], ranges[:, chunk, 1]
+    total = 0
+    for t in range(nr_pad // _RT):
+        in_band = q_valid & (t_lo <= t) & (t < t_hi)
+        sx = rx[:, t].contiguous()
+        n = (torch.searchsorted(sx, hi, right=True)
+             - torch.searchsorted(sx, lo))
+        total += int(torch.where(in_band, n, 0).sum())
+    return total
+
+
 def sub_tile_bounds(rx, r_valid, nr_pad: int):
     """The kernel's x bounds per 32-ref sub-tile of the padded refs, over
     the valid refs' x: (suffix minimum of the minima from sub-tile s to the

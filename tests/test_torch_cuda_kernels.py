@@ -429,7 +429,10 @@ def test_knn_banded_matches_band_oracle(gen, case):
     rpen = torch.where(rv, 0.0, knn_banded.BIG)
     ranges = knn_banded.band_ranges(q, qpen, refs, rpen, 8.0)
     tile_pairs = int((ranges[..., 1] - ranges[..., 0]).sum()) * 1024 * 512
-    assert 0 < int(visited) <= tile_pairs
+    # the bound's count (pairs within the stop radius at the exact answer)
+    # is work the sweep cannot skip
+    needed = knn_banded.needed_pairs(q, refs, qv, rv, db)
+    assert 0 < needed <= int(visited) <= tile_pairs
 
 
 def test_train_step_kernels_vs_plain(gen):

@@ -138,6 +138,30 @@ def test_band_plain_equals_exact_search_when_the_band_covers_all():
     assert (got_d.numpy()[~qv] == BIG).all() and (got_i.numpy()[~qv] == 0).all()
 
 
+@pytest.mark.parametrize("margin", [2.0, 8.0])
+def test_needed_pairs_counts_the_band_within_the_stop_radius(margin):
+    """K6's bound counts, per valid query, the valid refs of its band whose
+    x lies within the kernel's stop radius at the exact answer: the same
+    count taken pair by pair here."""
+    q, qv, r, rv = _clouds(b=2, nq=1200, nr=2500, seed=3)
+    tq, tr, tqv, trv = _t(q), _t(r), _t(qv), _t(rv)
+    d, _ = kb.nn_1_sorted_band_plain(tq, tr, tqv, trv, margin)
+    got = kb.needed_pairs(tq, tr, tqv, trv, d, margin)
+    ranges = kb.band_ranges(tq, torch.where(tqv, 0.0, BIG), tr,
+                            torch.where(trv, 0.0, BIG), margin).numpy()
+    rad = kb.stop_radius(tq, d).numpy()
+    want = 0
+    for bi in range(q.shape[0]):
+        for i in np.flatnonzero(qv[bi]):
+            lo, hi = ranges[bi, i // 512]
+            ref = slice(lo * 1024, min(hi * 1024, r.shape[1]))
+            dx = np.abs(r[bi, ref, 0].astype(np.float64) - float(q[bi, i, 0]))
+            want += int((rv[bi, ref] & (dx <= rad[bi, i])).sum())
+    assert got == want
+    # the exact neighbour lies within the radius: it is always counted
+    assert 0 < got < int(qv.sum()) * int(rv.sum(-1).max())
+
+
 @pytest.mark.parametrize("layout", ["sorted", "shuffled", "sparse_valid"])
 def test_sub_tile_bounds(layout):
     """The kernel's stop bounds: per 32-ref sub-tile, the suffix minimum of

@@ -19,11 +19,13 @@ Phases, each printing JSON lines:
                band (nn_1_sorted_band_plain) on every valid query and
                within its approximation contract against the exact 1-NN
                (knn_banded.contract_report), with the pairs its sweep
-               tested (its bound); kernel, plain and library
-               times (CUDA events, median of 20 calls), for K1-K3, K5, K6
-               and the VJP also the kernel alone (torch.profiler, mean of
-               20 launches), for K1 and K3 the wrapper's enqueue time
-               (host_ms), and the bound. K1's and
+               tested (its bound); K4 also at the decoder gather's C = 2
+               fp32, with the host time of each step its wrapper shares;
+               kernel, plain and library
+               times (CUDA events, median of 20 calls), for every kernel
+               also the kernel alone (torch.profiler, mean of
+               20 launches), for K1, K3, K4, K1-add and the VJP the
+               wrapper's enqueue time (host_ms), and the bound. K1's and
                K3's library calls allocate a zeroed grid each time, as the
                kernels return a fresh one (the reused, pre-zeroed grid's
                time is kept as library_ms_prezeroed);
@@ -295,6 +297,13 @@ def check_scatter_max(gen, cells, nc, c, dtype):
     }
 
 
+def occupied_cells(cells, nc):
+    """Distinct grid cells that ascending ids [B, N] reach (ids >= nc are
+    dropped)."""
+    return int((cells[:, :1] < nc).sum()) + int(
+        ((cells[:, 1:] != cells[:, :-1]) & (cells[:, 1:] < nc)).sum())
+
+
 def check_gather(gen, cells, nc, c, dtype):
     """K4 against its plain version (bitwise) on a random grid at the given
     cells (drop bucket for the points outside a pillar)."""
@@ -313,7 +322,9 @@ def check_gather(gen, cells, nc, c, dtype):
     in_grid = int((cells < nc).sum())
     idx = cells.long().clamp(max=nc - 1)[..., None].expand(-1, -1, c)
     es = grid.element_size()
-    nbytes = cells.numel() * 4 + in_grid * c * es + got.numel() * es
+    # read the cells and the grid rows of their (distinct) cells, write out
+    nbytes = (cells.numel() * 4 + occupied_cells(cells, nc) * c * es
+              + got.numel() * es)
     bms, bby = bound(nbytes, 0, FP32_FLOP_PER_S)
     return {
         "name": "grid_gather", "route": "cuda",
@@ -321,14 +332,53 @@ def check_gather(gen, cells, nc, c, dtype):
         "replaces": "liso_tpu/ops/grid_scatter_pallas.py:210",
         "max_abs_err": float((got.float() - want.float()).abs().max()),
         "ms": cuda_ms(lambda: grid_scatter.grid_gather(grid, cells)),
+        "kernel_only_ms": kernel_only_ms(
+            lambda: grid_scatter.grid_gather(grid, cells), "grid_gather_kernel"),
+        "host_ms": host_ms(lambda: grid_scatter.grid_gather(grid, cells)),
         "plain_ms": cuda_ms(lambda: grid_scatter.grid_gather(grid, cells, plain=True)),
         "bound_ms": bms, "bound_by": bby,
         "library_ms": cuda_ms(lambda: torch.gather(grid, 1, idx)),
         "library_call": "torch.gather (no drop-bucket mask)",
         "bytes": nbytes, "points_in_grid": in_grid,
+        "occupied_cells": occupied_cells(cells, nc),
         "shape": f"grid [{b}, {nc}, {c}] {dtype_name(dtype)} at cells "
                  f"[{b}, {n}] -> [{b}, {n}, {c}]",
     }
+
+
+def wrapper_host_steps(grid, cells):
+    """Host ms (host_ms, mean of 200 calls) of each step a kernel wrapper
+    shares, taken alone at K4's inputs, beside the whole K4 wrapper and
+    torch.gather: where a short call's event time goes besides the kernel.
+    `torch.cuda.current_stream` is how the wrappers read the stream before
+    `kernels.stream`; the entry point called with B = 0 returns before its
+    launch (the ctypes call alone)."""
+    import torch
+
+    from liso_tpu_torch import kernels
+    from liso_tpu_torch.ops import grid_scatter
+
+    dev = grid.device
+    idx = cells.long().clamp(max=grid.shape[1] - 1)[..., None].expand(
+        -1, -1, grid.shape[2])
+    one = torch.zeros(1, device=dev)
+    steps = {
+        "grid_gather": lambda: grid_scatter.grid_gather(grid, cells),
+        "torch.gather": lambda: torch.gather(grid, 1, idx),
+        "_check_cuda": lambda: grid_scatter._check_cuda(grid, cells),
+        "kernels.function": lambda: kernels.function("grid_gather"),
+        "kernels.stream": lambda: kernels.stream(dev),
+        "torch.cuda.current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "kernels.check": lambda: kernels.check(0, "grid_gather"),
+        "torch.empty": lambda: torch.empty(*cells.shape, grid.shape[2],
+                                           dtype=grid.dtype, device=dev),
+        "Tensor.new_empty": lambda: grid.new_empty((*cells.shape, grid.shape[2])),
+        "entry point, B = 0": lambda: kernels.function("grid_gather")(
+            grid.data_ptr(), cells.data_ptr(), grid.data_ptr(), 0,
+            cells.shape[1], grid.shape[2], grid.shape[1], 1, kernels.stream(dev)),
+        "Tensor.zero_, 4 bytes (one launch)": lambda: one.zero_(),
+    }
+    return {k: host_ms(fn, reps=200) for k, fn in steps.items()}
 
 
 def check_scatter_max_vjp(gen, cells, nc, c, dtype):
@@ -361,8 +411,7 @@ def check_scatter_max_vjp(gen, cells, nc, c, dtype):
     # read the cells, the features of the points in the grid and the grid
     # and cotangent rows of their (distinct) cells; write dfeats
     in_grid = int(kept.sum())
-    occupied = int((cells[:, :1] < nc).sum()) + int(
-        ((cells[:, 1:] != cells[:, :-1]) & (cells[:, 1:] < nc)).sum())
+    occupied = occupied_cells(cells, nc)
     es = feats.element_size()
     nbytes = (cells.numel() * 4 + (in_grid + 2 * occupied) * c * es
               + got.numel() * es)
@@ -376,6 +425,7 @@ def check_scatter_max_vjp(gen, cells, nc, c, dtype):
         "ms": cuda_ms(lambda: grid_scatter.scatter_max_vjp(*args)),
         "kernel_only_ms": kernel_only_ms(
             lambda: grid_scatter.scatter_max_vjp(*args), "scatter_max_vjp_kernel"),
+        "host_ms": host_ms(lambda: grid_scatter.scatter_max_vjp(*args)),
         "plain_ms": cuda_ms(lambda: grid_scatter.scatter_max_vjp(*args, plain=True)),
         "bound_ms": bms, "bound_by": bby,
         "library_ms": cuda_ms(library),
@@ -389,9 +439,10 @@ def check_scatter_max_vjp(gen, cells, nc, c, dtype):
 def shape_entry(r):
     """The numbers of a kernel check at a second shape, for the kernels
     line."""
-    return {k: r[k] for k in ("shape", "max_abs_err", "ms", "kernel_only_ms",
-                              "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                              "library_ms_prezeroed") if k in r}
+    return {k: r[k] for k in ("shape", "max_abs_err", "max_err_over_bound", "ms",
+                              "kernel_only_ms", "host_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "library_ms_prezeroed")
+            if k in r}
 
 
 def check_corr_fwd(f0, f1cat, coords, lv, layout):
@@ -613,6 +664,10 @@ def check_grid_reduce_add(gen, cells, nc, c, dtype):
         "max_abs_err": float(err.max()),
         "max_err_over_bound": float((err / tol.clamp(min=1e-30)).max()),
         "ms": cuda_ms(lambda: grid_scatter.grid_reduce_add(gv, cells, nc)),
+        "kernel_only_ms": kernel_only_ms(
+            lambda: grid_scatter.grid_reduce_add(gv, cells, nc),
+            "grid_reduce_add_kernel"),
+        "host_ms": host_ms(lambda: grid_scatter.grid_reduce_add(gv, cells, nc)),
         "plain_ms": cuda_ms(
             lambda: grid_scatter.grid_reduce_add(gv, cells, nc, plain=True)),
         "bound_ms": bms, "bound_by": bby,
@@ -700,11 +755,20 @@ def phase_train_kernels(trainer, batch):
 
     # K4: the TPU VJP's gather (no path launches it now), grid [1, 846400,
     # 64] bf16 at the cell ids of frame 0 (drop bucket for the points
-    # outside a pillar); the fused VJP at the same cells (its own
-    # generator: the later checks keep their inputs)
+    # outside a pillar), with the host time of each step its wrapper
+    # shares; and at the decoder's gated flow gather, grid [1, 846400, 2]
+    # fp32 at the same cells (slim_decoder.py:118-128); the fused VJP at
+    # the same cells (their own generators: the later checks keep their
+    # inputs)
     nc = trainer.bev.num_cells
     cells = prepare_pillar_inputs(p0.pcl, p0.valid, trainer.bev).cell
-    results.append(check_gather(g, cells, nc, 64, torch.bfloat16))
+    k4 = check_gather(g, cells, nc, 64, torch.bfloat16)
+    k4["host_steps_ms"] = wrapper_host_steps(
+        torch.zeros(1, nc, 64, dtype=torch.bfloat16, device="cuda"), cells)
+    k4["decoder_shape"] = shape_entry(check_gather(
+        torch.Generator(device="cuda").manual_seed(8), cells, nc, 2,
+        torch.float32))
+    results.append(k4)
     results.append(check_scatter_max_vjp(
         torch.Generator(device="cuda").manual_seed(7), cells, nc, 64,
         torch.bfloat16))
@@ -720,7 +784,7 @@ def phase_train_kernels(trainer, batch):
     g_add = torch.Generator(device="cuda").manual_seed(3)
     k1add = [check_grid_reduce_add(g_add, cells, nc, c, dt)
              for c, dt in ((64, torch.bfloat16), (2, torch.float32))]
-    results.append({**k1add[0], "second_shape": k1add[1]})
+    results.append({**k1add[0], "second_shape": shape_entry(k1add[1])})
     results.append(k1)
 
     # K3: the threshold histogram, 6 iterations x (fw + bw) points, 100000
@@ -1492,6 +1556,7 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "kernel_only_ms", "host_ms",
             "library_ms_prezeroed", "train_shape", "detect_train_shape",
+            "second_shape", "decoder_shape", "host_steps_ms",
             "skewed_layout", "slim_step_layout", "serving_step_layout",
             "needed_pairs", "visited_pairs", "visited_over_needed",
             "band_bound_ms", "band_agreement")

@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "_build"
 NVCC_FLAGS = [
@@ -78,7 +80,7 @@ SOURCES = {
     ),
     "grid_reduce_add": (
         "grid_reduce_add",
-        # g, starts, out, B, N, C, num_cells, is_bf16, stream
+        # g, cells, out, B, N, C, num_cells, is_bf16, stream
         [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
 }
@@ -167,6 +169,14 @@ def function(name: str):
         fn.restype = ctypes.c_int
         _loaded[name], _functions[name] = lib, fn
     return fn
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on `device` as the raw `cudaStream_t`
+    an entry point takes, read without building the `torch.cuda.Stream`
+    object that `torch.cuda.current_stream(device).cuda_stream` builds (and
+    enters the device for) on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, what: str) -> None:

@@ -7,105 +7,216 @@
 // each 128-point chunk into the output block by a one-hot matmul on the MXU,
 // because scatters serialise on the TPU, and rounds the block to the input
 // type after every chunk. Here the points arrive sorted by cell, so every
-// cell's rows form one contiguous range [starts[c], starts[c+1]) (a
-// searchsorted of the cell bounds, done by the wrapper, gives the ranges)
-// and no atomics are needed: one thread owns one (cell, group of channels),
-// walks the cell's range, sums in fp32 registers, and writes once, rounding
-// to the output type once. The order of the sum is the points' order, so
-// the result is deterministic. Every cell is written by the kernel, empty
-// ones as 0, so no zero-fill pass exists. Ids >= num_cells (the drop bucket,
-// int32 max included) sort past the last cell's range and are never read.
+// cell's rows form one contiguous range and no atomics are needed; each
+// cell is summed in fp32 and rounded to the output type once. Ids >=
+// num_cells (the drop bucket, int32 max included) sort past the last cell's
+// range and are never read.
 //
-// Layout: consecutive threads on consecutive channel groups of one cell, so
-// a grid row is written as contiguous vectors of kVec channels (16 bytes
-// fp32, 8 bytes bf16) when C % kVec == 0 and both arrays are aligned, else as
-// single channels (C = 2 at the decoder's flow gather).
+// Bound: bytes. The grid write dominates: at the adjoint of the SLIM train
+// step's gather (846400 cells of 64 bf16 channels, 5559 of 65536 points in
+// the grid) it is 108 MB against under 1 MB of rows read. So the kernel
+// writes every cell itself, empty ones as 0, and no zero-fill pass exists.
 //
-// Bound: bytes. At the adjoint of the SLIM train step's gather (846400 cells
-// of 64 bf16 channels, 65536 points of which about 9% reach the grid) the
-// grid is 108 MB written against under 1 MB of rows read.
+// Design (K1's, grid_scatter_max.cu, with a sum for the max): one block
+// owns a tile of kTile cells of one sample and finds its points and every
+// cell's start inside the kernel (cell_ranges.cuh): nothing is searched on
+// the host. A row is moved as vectors of VB bytes, the widest of 16, 8, 4
+// and 2 that divides the row and both arrays' alignment (16 at C = 64 bf16,
+// 8 at C = 2 fp32, 2 at odd C in bf16), one thread per vector and row
+// bytes / VB threads per cell. Each thread sums its vector over the cell's
+// points in fp32 registers, in the points' order, and writes it once with
+// streaming stores (the grid is write-once and larger than L2). A cell of
+// more than kLong points is taken by the whole block: each cell group sums
+// a strided share of the points, and the partial sums meet in shared memory
+// in a fixed order, so one cell may hold every point of a sample and the
+// result stays deterministic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cell_ranges.cuh"
+
 namespace {
 
-constexpr int kVec = 4;  // channels per thread on the vector path
 constexpr int kThreads = 256;
+constexpr int kTile = 1024;  // cells per block
+constexpr int kLong = 32;    // longer cells are taken by the whole block
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f(float v, float* out) { *out = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* out) {
-  *out = __float2bfloat16_rn(v);
-}
-
-// V contiguous elements of T, moved as one aligned access.
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
+template <int VB>
+struct Vec;  // VB bytes moved as one aligned access, as 32-bit words
+template <>
+struct Vec<16> {
+  using type = uint4;
+  __device__ static void split(uint4 v, unsigned* w) {
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  }
+  __device__ static uint4 join(const unsigned* w) {
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+template <>
+struct Vec<8> {
+  using type = uint2;
+  __device__ static void split(uint2 v, unsigned* w) { w[0] = v.x; w[1] = v.y; }
+  __device__ static uint2 join(const unsigned* w) { return make_uint2(w[0], w[1]); }
+};
+template <>
+struct Vec<4> {
+  using type = unsigned;
+  __device__ static void split(unsigned v, unsigned* w) { w[0] = v; }
+  __device__ static unsigned join(const unsigned* w) { return w[0]; }
+};
+template <>
+struct Vec<2> {  // one bf16, in the low half of the word
+  using type = unsigned short;
+  __device__ static void split(unsigned short v, unsigned* w) { w[0] = v; }
+  __device__ static unsigned short join(const unsigned* w) {
+    return (unsigned short)w[0];
+  }
 };
 
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-grid_reduce_add_kernel(const T* __restrict__ g, const int* __restrict__ starts,
-                       T* __restrict__ out, int n, int c, int num_cells) {
-  const int groups = c / V;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int b = blockIdx.y;
-  if (idx >= (long long)num_cells * groups) return;
-  const int cell = (int)(idx / groups);
-  const int k = (int)(idx % groups) * V;
-  const int* st = starts + (size_t)b * (num_cells + 1);
-  const int s = st[cell];
-  const int e = st[cell + 1];
-  const T* src = g + (size_t)b * n * c + k;
-  float acc[V];
+// The E elements of one vector as fp32: a word is one fp32 or two bf16 (the
+// lower half first); a bf16 widens exactly by its bits.
+template <bool kBf16, int VB>
+struct Elems {
+  static constexpr int E = VB / (kBf16 ? 2 : 4);
+  static constexpr int W = VB >= 4 ? VB / 4 : 1;
+  __device__ static void add_into(float* acc, typename Vec<VB>::type v) {
+    unsigned w[W];
+    Vec<VB>::split(v, w);
 #pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
-  for (int p = s; p < e; ++p) {
-    const Pack<T, V> x = *reinterpret_cast<const Pack<T, V>*>(src + (size_t)p * c);
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] += to_f(x.v[i]);
+    for (int j = 0; j < E; ++j) {
+      if constexpr (kBf16)
+        acc[j] += __uint_as_float(j & 1 ? w[j / 2] & 0xffff0000u : w[j / 2] << 16);
+      else
+        acc[j] += __uint_as_float(w[j]);
+    }
   }
-  Pack<T, V> y;
+  // rounds to nearest even, as the plain version's cast does
+  __device__ static typename Vec<VB>::type pack(const float* acc) {
+    unsigned w[W];
 #pragma unroll
-  for (int i = 0; i < V; ++i) from_f(acc[i], &y.v[i]);
-  *reinterpret_cast<Pack<T, V>*>(out + ((size_t)b * num_cells + cell) * c + k) = y;
+    for (int i = 0; i < W; ++i) w[i] = 0;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      if constexpr (kBf16)
+        w[j / 2] |= (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(acc[j]))
+                    << (16 * (j & 1));
+      else
+        w[j] = __float_as_uint(acc[j]);
+    }
+    return Vec<VB>::join(w);
+  }
+};
+
+template <bool kBf16, int VB>
+__global__ void __launch_bounds__(kThreads)
+grid_reduce_add_kernel(const char* __restrict__ g, const int* __restrict__ cells,
+                       char* __restrict__ out, int n, int c, int num_cells) {
+  using V = typename Vec<VB>::type;
+  using El = Elems<kBf16, VB>;
+  constexpr int E = El::E;
+  __shared__ int starts[kTile + 1];
+  __shared__ int range[2];
+  __shared__ int longs[kTile];
+  __shared__ int n_long;
+  __shared__ float partial[kThreads * E];
+  const int b = blockIdx.y;
+  const int base = blockIdx.x * kTile;
+  const int tile = min(kTile, num_cells - base);
+  const size_t row = (size_t)c * (kBf16 ? 2 : 4);  // bytes
+  const int vecs = (int)(row / VB);                // vectors per row
+  const int group = min(vecs, kThreads);           // threads per cell
+  const int slots = kThreads / group;              // cells at a time
+  const int slot = threadIdx.x / group, v0 = threadIdx.x % group;
+  const char* src = g + (size_t)b * n * row;
+  char* dst = out + ((size_t)b * num_cells + base) * row;
+  if (threadIdx.x == 0) n_long = 0;
+  cell_ranges::tile_starts<kThreads>(cells + (size_t)b * n, n, base, tile,
+                                     starts, range);
+
+  if (slot < slots) {
+    for (int k = slot; k < tile; k += slots) {
+      const int s = starts[k], e = starts[k + 1];
+      if (e - s > kLong) {
+        if (v0 == 0) longs[atomicAdd(&n_long, 1)] = k;
+        continue;
+      }
+      for (int vi = v0; vi < vecs; vi += group) {
+        float acc[E];
+#pragma unroll
+        for (int j = 0; j < E; ++j) acc[j] = 0.0f;
+        for (int p = s; p < e; ++p)
+          El::add_into(acc, reinterpret_cast<const V*>(src + (size_t)p * row)[vi]);
+        __stcs(reinterpret_cast<V*>(dst + (size_t)k * row) + vi, El::pack(acc));
+      }
+    }
+  }
+  __syncthreads();
+
+  // long cells: slot q sums points s + q, s + q + slots, ...; slot 0 adds
+  // the slots' partial sums in slot order and writes the row
+  for (int i = 0; i < n_long; ++i) {
+    const int k = longs[i];
+    const int s = starts[k], e = starts[k + 1];
+    for (int vb = 0; vb < vecs; vb += group) {
+      const int vi = vb + v0;
+      const bool active = slot < slots && vi < vecs;
+      float acc[E];
+#pragma unroll
+      for (int j = 0; j < E; ++j) acc[j] = 0.0f;
+      if (active)
+        for (int p = s + slot; p < e; p += slots)
+          El::add_into(acc, reinterpret_cast<const V*>(src + (size_t)p * row)[vi]);
+#pragma unroll
+      for (int j = 0; j < E; ++j) partial[threadIdx.x * E + j] = acc[j];
+      __syncthreads();
+      if (slot == 0 && vi < vecs) {
+        for (int q = 1; q < slots; ++q)
+#pragma unroll
+          for (int j = 0; j < E; ++j) acc[j] += partial[(q * group + v0) * E + j];
+        __stcs(reinterpret_cast<V*>(dst + (size_t)k * row) + vi, El::pack(acc));
+      }
+      __syncthreads();
+    }
+  }
 }
 
-template <typename T, int V>
-cudaError_t launch_v(const void* g, const void* starts, void* out, int b,
-                     int n, int c, int num_cells, cudaStream_t stream) {
-  const long long work = (long long)num_cells * (c / V);
-  if (work == 0 || b == 0) return cudaSuccess;
-  dim3 blocks((unsigned)((work + kThreads - 1) / kThreads), b);
-  grid_reduce_add_kernel<T, V><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const int*>(starts),
-      static_cast<T*>(out), n, c, num_cells);
+template <bool kBf16, int VB>
+cudaError_t launch(const void* g, const void* cells, void* out, int b, int n,
+                   int c, int num_cells, cudaStream_t stream) {
+  dim3 blocks((num_cells + kTile - 1) / kTile, b);
+  grid_reduce_add_kernel<kBf16, VB><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const char*>(g), static_cast<const int*>(cells),
+      static_cast<char*>(out), n, c, num_cells);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* g, const void* starts, void* out, int b, int n,
-                   int c, int num_cells, cudaStream_t stream) {
-  const uintptr_t align = sizeof(T) * kVec;
-  if (c % kVec == 0 && (uintptr_t)g % align == 0 && (uintptr_t)out % align == 0)
-    return launch_v<T, kVec>(g, starts, out, b, n, c, num_cells, stream);
-  return launch_v<T, 1>(g, starts, out, b, n, c, num_cells, stream);
+template <bool kBf16>
+cudaError_t launch_any(const void* g, const void* cells, void* out, int b,
+                       int n, int c, int num_cells, cudaStream_t stream) {
+  const size_t row = (size_t)c * (kBf16 ? 2 : 4);
+  const uintptr_t at = (uintptr_t)g | (uintptr_t)out | row;
+  if (at % 16 == 0) return launch<kBf16, 16>(g, cells, out, b, n, c, num_cells, stream);
+  if (at % 8 == 0) return launch<kBf16, 8>(g, cells, out, b, n, c, num_cells, stream);
+  if (at % 4 == 0 || !kBf16)
+    return launch<kBf16, 4>(g, cells, out, b, n, c, num_cells, stream);
+  return launch<kBf16, kBf16 ? 2 : 4>(g, cells, out, b, n, c, num_cells, stream);
 }
 
 }  // namespace
 
-// g [B, N, C] (fp32 or bf16) sorted by cell within each sample, starts
-// [B, num_cells + 1] int32 (the rows of cell k are [starts[k], starts[k+1])),
-// out [B, num_cells, C] (type of g). All contiguous, C >= 1.
-extern "C" int grid_reduce_add(const void* g, const void* starts, void* out,
+// g [B, N, C] (fp32 or bf16) and cells [B, N] int32, ascending within each
+// sample (ids >= num_cells, int32 max included, are dropped); out [B,
+// num_cells, C] (type of g). All contiguous, C >= 1, fp32 arrays aligned to
+// 4 bytes and bf16 arrays to 2.
+extern "C" int grid_reduce_add(const void* g, const void* cells, void* out,
                                int b, int n, int c, int num_cells, int is_bf16,
                                void* stream) {
   if (c < 1) return (int)cudaErrorInvalidValue;
+  if (b == 0 || num_cells == 0) return (int)cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(g, starts, out, b, n, c, num_cells, s);
-  return launch<float>(g, starts, out, b, n, c, num_cells, s);
+    return launch_any<true>(g, cells, out, b, n, c, num_cells, s);
+  return launch_any<false>(g, cells, out, b, n, c, num_cells, s);
 }

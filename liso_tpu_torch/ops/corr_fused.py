@@ -208,7 +208,7 @@ def _fused_corr_window_fwd(f0, f1cat, coords_t, levels, radius, plain):
         fn(
             f0.data_ptr(), f1cat.data_ptr(), coords_t.data_ptr(),
             out.data_ptr(), b, hw, c, levels.total, nl, meta, _scale(c),
-            torch.cuda.current_stream(dev).cuda_stream,
+            kernels.stream(dev),
         ),
         "corr_window_fwd",
     )
@@ -310,7 +310,7 @@ def corr_window_bwd(f0, f1cat, coords_t, g, levels: CorrLevels, radius: int,
             f0.data_ptr(), f1cat.data_ptr(), coords_t.data_ptr(),
             g.data_ptr(), df0.data_ptr(), df1.data_ptr(), b, hw, c,
             levels.total, nl, _level_meta(levels, levels.logical[0][1]),
-            _scale(c), torch.cuda.current_stream(dev).cuda_stream,
+            _scale(c), kernels.stream(dev),
         ),
         "corr_window_bwd",
     )

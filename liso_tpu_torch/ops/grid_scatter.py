@@ -10,9 +10,9 @@ liso_tpu/ops/grid_scatter_pallas.py).
     so every tied maximum gets the full cotangent;
   * `scatter_max_vjp` - that VJP in one pass (kernel
     `kernels/scatter_max_vjp.cu`), the backward of `grid_scatter_max_occ`;
-  * `grid_gather` - per-point row gather, drop bucket reads 0 (kernel K4,
-    `kernels/grid_gather.cu`), the TPU VJP's gather; differentiable in the
-    grid with `grid_reduce_add` as its backward;
+  * `grid_gather` - per-point row gather at any C, drop bucket reads 0
+    (kernel K4, `kernels/grid_gather.cu`), the TPU VJP's gather;
+    differentiable in the grid with `grid_reduce_add` as its backward;
   * `grid_reduce_add` - per-cell sums of cell-sorted point rows (kernel
     K1-add, `kernels/grid_reduce_add.cu`), the `op="add"` of `grid_reduce`;
   * `grid_reduce_add_c1` - scatter-add of scalar values over sorted bins
@@ -42,17 +42,11 @@ def _check_cuda(*tensors):
     return dev
 
 
-def _cell_starts(cells: torch.Tensor, num_cells: int) -> torch.Tensor:
-    """[B, num_cells + 1] int32 ranges of ascending ids [B, N]: the points
-    of cell k are [starts[k], starts[k+1]); ids >= num_cells (the drop
-    bucket, int32 max included) sort past the last range. Only K1-add
-    takes these; K1 and K3 find each tile's ranges inside the kernel
-    (`kernels/cell_ranges.cuh`)."""
-    cells = cells.to(torch.int32).contiguous()
-    bounds = torch.arange(
-        num_cells + 1, dtype=torch.int32, device=cells.device
-    ).expand(cells.shape[0], num_cells + 1).contiguous()
-    return torch.searchsorted(cells, bounds, out_int32=True)
+def _int32(cells: torch.Tensor) -> torch.Tensor:
+    """cells as contiguous int32, without a copy where they already are."""
+    if cells.dtype == torch.int32 and cells.is_contiguous():
+        return cells
+    return cells.to(torch.int32).contiguous()
 
 
 def grid_scatter_max_occ_plain(
@@ -85,7 +79,7 @@ def _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain):
     feats = feats.contiguous()
     if feats.data_ptr() % (4 * feats.element_size()):
         raise ValueError("feats must be aligned to 4 elements (vector loads)")
-    cells = cells.to(torch.int32).contiguous()
+    cells = _int32(cells)
     grid = torch.empty((b, num_cells, c), dtype=feats.dtype, device=feats.device)
     occ = torch.empty((b, num_cells, 1), dtype=torch.float32, device=feats.device)
     kernels.check(
@@ -93,7 +87,7 @@ def _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain):
             feats.data_ptr(), cells.data_ptr(), grid.data_ptr(),
             occ.data_ptr(), b, n, c, num_cells,
             int(feats.dtype == torch.bfloat16),
-            torch.cuda.current_stream(feats.device).cuda_stream,
+            kernels.stream(feats.device),
         ),
         "grid_scatter_max_occ",
     )
@@ -171,14 +165,14 @@ def scatter_max_vjp(feats: torch.Tensor, cells: torch.Tensor,
     if any(t.data_ptr() % (4 * t.element_size()) for t in (feats, grid, g_grid)):
         raise ValueError("feats, grid, g_grid must be aligned to 4 elements "
                          "(vector loads)")
-    cells = cells.to(torch.int32).contiguous()
+    cells = _int32(cells)
     out = torch.empty_like(feats)
     kernels.check(
         kernels.function("scatter_max_vjp")(
             feats.data_ptr(), cells.data_ptr(), grid.data_ptr(),
             g_grid.data_ptr(), out.data_ptr(), b, n, c, nc,
             int(feats.dtype == torch.bfloat16),
-            torch.cuda.current_stream(feats.device).cuda_stream,
+            kernels.stream(feats.device),
         ),
         "scatter_max_vjp",
     )
@@ -205,19 +199,13 @@ def _grid_gather_fwd(grid, cells, plain):
         raise ValueError(f"grid {tuple(grid.shape)}, cells {tuple(cells.shape)}")
     b, nc, c = grid.shape
     n = cells.shape[1]
-    if c % 4:
-        raise ValueError(f"the CUDA kernel takes C % 4 == 0, got C = {c}")
     grid = grid.contiguous()
-    if grid.data_ptr() % (4 * grid.element_size()):
-        raise ValueError("grid must be aligned to 4 elements (vector loads)")
-    cells = cells.to(torch.int32).contiguous()
+    cells = _int32(cells)
     out = torch.empty(b, n, c, dtype=grid.dtype, device=grid.device)
-    fn = kernels.function("grid_gather")
     kernels.check(
-        fn(
+        kernels.function("grid_gather")(
             grid.data_ptr(), cells.data_ptr(), out.data_ptr(), b, n, c, nc,
-            int(grid.dtype == torch.bfloat16),
-            torch.cuda.current_stream(grid.device).cuda_stream,
+            int(grid.dtype == torch.bfloat16), kernels.stream(grid.device),
         ),
         "grid_gather",
     )
@@ -245,9 +233,11 @@ def grid_gather(grid: torch.Tensor, cells: torch.Tensor, plain: bool = False):
     476-495`): the cotangent of each grid row is the sum of its points'
     cotangent rows (`grid_reduce_add`). Cell ids MUST be ascending per
     sample when `grid` requires a gradient (checked: the backward reads each
-    cell's rows as one range); a gather without gradient takes any order."""
-    if grid.requires_grad and torch.is_grad_enabled() and bool(
-            (cells[:, 1:] < cells[:, :-1]).any()):
+    cell's rows as one range); a gather without gradient takes any order,
+    and skips the autograd Function and its host cost."""
+    if not (grid.requires_grad and torch.is_grad_enabled()):
+        return _grid_gather_fwd(grid, cells, plain)
+    if bool((cells[:, 1:] < cells[:, :-1]).any()):
         raise ValueError("grid_gather with a gradient needs ascending cell "
                          "ids per sample")
     return _GridGather.apply(grid, cells, plain)
@@ -273,9 +263,10 @@ def grid_reduce_add(g: torch.Tensor, cells: torch.Tensor, num_cells: int,
     """Per-cell sums of cell-sorted point rows (kernel K1-add,
     `kernels/grid_reduce_add.cu`): the `op="add"` of `grid_reduce` at any
     C >= 1. Cell ids MUST be ascending per sample. Same contract as
-    `grid_reduce_add_plain`; the kernel sums each cell in fp32 in the
-    points' order and rounds once (the TPU kernel rounds to g's dtype after
-    every 128-point chunk)."""
+    `grid_reduce_add_plain`; the kernel sums each cell in fp32, in the
+    points' order or, for a cell of more than 32 points, as strided partial
+    sums added in a fixed order, and rounds once (the TPU kernel rounds to
+    g's dtype after every 128-point chunk)."""
     if plain or g.device.type == "cpu":
         return grid_reduce_add_plain(g, cells, num_cells)
     _check_cuda(g, cells)
@@ -285,14 +276,12 @@ def grid_reduce_add(g: torch.Tensor, cells: torch.Tensor, num_cells: int,
         raise ValueError(f"g {tuple(g.shape)}, cells {tuple(cells.shape)}")
     b, n, c = g.shape
     g = g.contiguous()
-    starts = _cell_starts(cells, num_cells)
+    cells = _int32(cells)
     out = torch.empty(b, num_cells, c, dtype=g.dtype, device=g.device)
-    fn = kernels.function("grid_reduce_add")
     kernels.check(
-        fn(
-            g.data_ptr(), starts.data_ptr(), out.data_ptr(), b, n, c,
-            num_cells, int(g.dtype == torch.bfloat16),
-            torch.cuda.current_stream(g.device).cuda_stream,
+        kernels.function("grid_reduce_add")(
+            g.data_ptr(), cells.data_ptr(), out.data_ptr(), b, n, c,
+            num_cells, int(g.dtype == torch.bfloat16), kernels.stream(g.device),
         ),
         "grid_reduce_add",
     )
@@ -324,7 +313,7 @@ def grid_reduce_add_c1(vals: torch.Tensor, bins: torch.Tensor, num_bins: int,
     kernels.check(
         kernels.function("grid_reduce_add_c1")(
             vals.data_ptr(), bins.data_ptr(), out.data_ptr(), r, n, num_bins,
-            torch.cuda.current_stream(vals.device).cuda_stream,
+            kernels.stream(vals.device),
         ),
         "grid_reduce_add_c1",
     )

@@ -223,7 +223,7 @@ def _nn1_kernel(q, refs, q_valid, r_valid, margin, visited=None):
             x["ranges"].data_ptr(), suf_min.data_ptr(), pre_max.data_ptr(),
             dist.data_ptr(), idx.data_ptr(),
             None if visited is None else visited.data_ptr(),
-            b, nq, x["nr_pad"], torch.cuda.current_stream(dev).cuda_stream,
+            b, nq, x["nr_pad"], kernels.stream(dev),
         ),
         "knn_banded",
     )

@@ -14,7 +14,7 @@ import torch
 from liso_tpu_torch import kernels, serve
 from liso_tpu_torch.ops import corr_fused, grid_scatter, knn_banded
 from liso_tpu_torch.ops.bev import BevSetup
-from torch_grid_layouts import cell_layout
+from torch_grid_layouts import LAYOUTS, cell_layout
 
 pytestmark = pytest.mark.cuda
 
@@ -160,15 +160,37 @@ def _sorted_cells(gen, b, n, nc):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_grid_gather_bitwise(gen, dtype):
+@pytest.mark.parametrize("c", [2, 3, 8, 64])
+def test_grid_gather_bitwise(gen, c, dtype):
+    """K4 at any C: 16-byte rows (C = 8 bf16, 64), 8-byte (C = 2 fp32), 4-
+    and 2-byte (C = 2, 3 bf16), 12-byte (C = 3 fp32)."""
     cells = _sorted_cells(gen, 2, 4096, 5000)
-    grid = torch.randn(2, 5000, 64, generator=gen, device="cuda").to(dtype)
+    grid = torch.randn(2, 5000, c, generator=gen, device="cuda").to(dtype)
     before = kernels.launches["grid_gather"]
     got = grid_scatter.grid_gather(grid, cells)
     assert kernels.launches["grid_gather"] == before + 1
     want = grid_scatter.grid_gather(grid, cells, plain=True)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("c,dtype", [(64, torch.bfloat16), (2, torch.float32),
+                                     (3, torch.bfloat16)])
+def test_grid_gather_layouts(gen, layout, c, dtype):
+    """K4 bitwise on the edge layouts of tests/torch_grid_layouts.py, N not
+    a multiple of a warp's 32 points, and on an unaligned view (the
+    narrowest vector path)."""
+    b, n, nc = 2, 4000, 5000
+    cells = torch.from_numpy(cell_layout(
+        layout, np.random.RandomState(n + c), b, n, nc)).cuda()
+    flat = torch.randn(b * nc * c + 1, generator=gen, device="cuda").to(dtype)
+    for g in (flat[:-1], flat[1:]):  # aligned, then one element off
+        g = g.view(b, nc, c)
+        got = grid_scatter.grid_gather(g, cells)
+        want = grid_scatter.grid_gather(g, cells, plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_scatter_max_vjp_bitwise(gen):
@@ -497,6 +519,35 @@ def test_grid_reduce_add_within_sum_order_bound(gen, b, n, nc, c, dtype):
     assert got.dtype == dtype
     assert bool(((got.float() - want.float()).abs() <= tol).all())
     assert bool((got[cnt == 0] == 0).all())
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("c,dtype", [(64, torch.bfloat16), (2, torch.float32),
+                                     (3, torch.bfloat16)])
+def test_grid_reduce_add_layouts(gen, layout, c, dtype):
+    """K1-add within its sum-order bound on the edge layouts of
+    tests/torch_grid_layouts.py: one_cell and crowded drive the long-cell
+    path (a cell of more than 32 points is summed by the whole block),
+    tile_edge and end_cells the tile bounds (1024 cells a block); empty
+    cells exactly 0."""
+    b, n, nc = 2, 32768 if layout == "one_cell" else 4096, 5000
+    cells = torch.from_numpy(cell_layout(
+        layout, np.random.RandomState(n + c), b, n, nc)).cuda()
+    g = torch.randn(b, n, c, generator=gen, device="cuda").to(dtype)
+    got = grid_scatter.grid_reduce_add(g, cells, nc)
+    want = grid_scatter.grid_reduce_add(g, cells, nc, plain=True)
+    absum = grid_scatter.grid_reduce_add(g.float().abs(), cells, nc, plain=True)
+    cnt = grid_scatter.grid_reduce_add(torch.ones_like(g, dtype=torch.float32),
+                                       cells, nc, plain=True)
+    torch.cuda.synchronize()
+    tol = 2 * cnt * 2.0**-24 * absum
+    if dtype == torch.bfloat16:
+        tol = tol + torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp(min=1e-30))) - 7)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert bool((got[cnt == 0] == 0).all())
+    if layout in ("one_cell", "crowded"):
+        assert int(cnt[..., 0].max()) > 32
 
 
 def test_grid_gather_vjp_uses_k1_add(gen):

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 from liso_tpu.ops import grid_scatter_pallas as jgs
 from liso_tpu_torch.ops import grid_scatter as tgs
-from torch_grid_layouts import cell_layout
+from torch_grid_layouts import LAYOUTS, cell_layout
 
 torch.set_num_threads(1)
 IMAX = np.iinfo(np.int32).max
@@ -32,9 +32,10 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-@pytest.mark.parametrize("nc,c", [(1000, 8), (4096, 64)])
+@pytest.mark.parametrize("nc,c", [(1000, 8), (4096, 64), (1000, 2), (1000, 3)])
 def test_grid_gather_matches_pallas(nc, c):
-    """Bitwise: a gather moves values. Drop-bucket ids read 0."""
+    """Bitwise: a gather moves values, at any C (C = 2 is the decoder's
+    flow gather). Drop-bucket ids read 0."""
     rng = np.random.RandomState(nc + c)
     cells = _sorted_cells(rng, 2, 1024, nc)
     grid = rng.randn(2, nc, c).astype(np.float32)
@@ -43,6 +44,39 @@ def test_grid_gather_matches_pallas(nc, c):
     got = tgs.grid_gather(_t(grid), _t(cells))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert bool((got[_t(cells) >= nc] == 0).all())
+
+
+@pytest.mark.parametrize("c", [2, 64])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_grid_gather_matches_pallas_edge_layouts(layout, c):
+    """The port's grid_gather (the plain version K4 is held to on the card)
+    vs _grid_gather_impl(interpret=True) on the edge layouts of
+    tests/torch_grid_layouts.py, at the decoder's C = 2 and at C = 64:
+    bitwise, drop-bucket ids (num_cells and int32 max) read 0."""
+    b, n, nc = 2, 1000, 2000
+    rng = np.random.RandomState(c + len(layout))
+    cells = cell_layout(layout, rng, b, n, nc)
+    grid = rng.randn(b, nc, c).astype(np.float32)
+    want = jgs._grid_gather_impl(jnp.asarray(grid), jnp.asarray(cells),
+                                 interpret=True)
+    got = tgs.grid_gather(_t(grid), _t(cells))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert bool((got[_t(cells) >= nc] == 0).all())
+
+
+def test_grid_gather_without_gradient_skips_autograd():
+    """A gather of a grid that needs no gradient (or under no_grad) returns
+    a tensor with no grad_fn; with a gradient it still refuses unsorted
+    ids and records its backward."""
+    rng = np.random.RandomState(13)
+    cells = _t(_crowded_cells(rng, 2, 256, 100))
+    grid = torch.randn(2, 100, 2)
+    assert tgs.grid_gather(grid, cells).grad_fn is None
+    with torch.no_grad():
+        assert tgs.grid_gather(grid.requires_grad_(), cells).grad_fn is None
+    assert tgs.grid_gather(grid, cells).grad_fn is not None
+    with pytest.raises(ValueError, match="ascending"):
+        tgs.grid_gather(grid, cells.flip(-1))
 
 
 @pytest.mark.parametrize("ties", [False, True])

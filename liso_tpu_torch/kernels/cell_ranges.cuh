@@ -44,64 +44,39 @@ __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ ids,
 // two warps. Starts with and ends with __syncthreads.
 //
 // The tile's points are [lo, hi), the lower bounds of base and base + cells.
-// The first point of each occupied cell writes its index as the cell's
-// start; every other cell starts where the next occupied cell does (hi past
-// the last), which a suffix minimum over the starts fills in: each thread
-// takes a run of consecutive cells, the runs' minima meet by warp shuffles
-// and one shared int a warp. So the work is the tile's points plus its
-// cells spread over the whole block, however far apart the points lie (a
-// sparse grid leaves runs of hundreds of empty cells, which one thread
-// filled one by one before).
+// Point p (lo <= p <= hi) writes the starts of the cells after its
+// predecessor's cell up to its own (point hi stands for the tile's end), so
+// every start is written once and the work is the tile's points plus its
+// cells. Each thread loads kUnroll points before it writes, so that a tile
+// holding a whole sample's points keeps several loads in flight.
 template <int kThreads>
 __device__ __forceinline__ void tile_starts(const int* __restrict__ ids, int n,
                                             int base, int cells, int* starts,
                                             int* range) {
   constexpr int kUnroll = 4;
-  constexpr int kWarps = kThreads / 32;
-  __shared__ int warp_min[kWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   __syncthreads();
-  for (int k = threadIdx.x; k < cells; k += kThreads) starts[k] = 0x7fffffff;
   if (warp < 2) {
     const int r = warp_lower_bound(ids, n, base + warp * cells);
-    if (lane == 0) range[warp] = r;
+    if ((threadIdx.x & 31) == 0) range[warp] = r;
   }
   __syncthreads();
   const int lo = range[0], hi = range[1];
-  for (int p0 = lo + (int)threadIdx.x; p0 < hi; p0 += kUnroll * kThreads) {
+  for (int p0 = lo + (int)threadIdx.x; p0 <= hi; p0 += kUnroll * kThreads) {
     int prev[kUnroll], cur[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int p = p0 + u * kThreads;
-      prev[u] = p > lo && p < hi ? ids[p - 1] : -1;
-      cur[u] = p < hi ? ids[p] : -1;
+      prev[u] = p > lo && p <= hi ? ids[p - 1] - base : -1;
+      cur[u] = p < hi ? ids[p] - base : cells;
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (cur[u] != prev[u]) starts[cur[u] - base] = p0 + u * kThreads;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p > hi) break;
+      for (int k = prev[u] + 1; k <= cur[u]; ++k) starts[k] = p;
+    }
   }
-  __syncthreads();
-  // suffix minimum: thread t owns cells [t * chunk, (t + 1) * chunk)
-  const int chunk = (cells + kThreads - 1) / kThreads;
-  const int k0 = min((int)threadIdx.x * chunk, cells);
-  const int k1 = min(k0 + chunk, cells);
-  int m = hi;
-  for (int k = k1 - 1; k >= k0; --k) m = min(m, starts[k]);
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int o = __shfl_down_sync(0xffffffffu, m, off);
-    if (lane + off < 32) m = min(m, o);
-  }
-  if (lane == 0) warp_min[warp] = m;  // the warp's cells
-  int carry = __shfl_down_sync(0xffffffffu, m, 1);  // the later lanes'
-  if (lane == 31) carry = hi;
-  __syncthreads();
-  for (int w = warp + 1; w < kWarps; ++w) carry = min(carry, warp_min[w]);
-  for (int k = k1 - 1; k >= k0; --k) {
-    carry = min(carry, starts[k]);
-    starts[k] = carry;
-  }
-  if (threadIdx.x == 0) starts[cells] = hi;
   __syncthreads();
 }
 

@@ -372,7 +372,6 @@ def wrapper_host_steps(grid, cells):
         "kernels.check": lambda: kernels.check(0, "grid_gather"),
         "torch.empty": lambda: torch.empty(*cells.shape, grid.shape[2],
                                            dtype=grid.dtype, device=dev),
-        "Tensor.new_empty": lambda: grid.new_empty((*cells.shape, grid.shape[2])),
         "entry point, B = 0": lambda: kernels.function("grid_gather")(
             grid.data_ptr(), cells.data_ptr(), grid.data_ptr(), 0,
             cells.shape[1], grid.shape[2], grid.shape[1], 1, kernels.stream(dev)),

@@ -199,9 +199,9 @@ cudaError_t launch_any(const void* g, const void* cells, void* out, int b,
   const uintptr_t at = (uintptr_t)g | (uintptr_t)out | row;
   if (at % 16 == 0) return launch<kBf16, 16>(g, cells, out, b, n, c, num_cells, stream);
   if (at % 8 == 0) return launch<kBf16, 8>(g, cells, out, b, n, c, num_cells, stream);
-  if (at % 4 == 0 || !kBf16)
-    return launch<kBf16, 4>(g, cells, out, b, n, c, num_cells, stream);
-  return launch<kBf16, kBf16 ? 2 : 4>(g, cells, out, b, n, c, num_cells, stream);
+  if (at % 4 == 0) return launch<kBf16, 4>(g, cells, out, b, n, c, num_cells, stream);
+  if constexpr (kBf16) return launch<kBf16, 2>(g, cells, out, b, n, c, num_cells, stream);
+  return cudaErrorMisalignedAddress;  // fp32 off a 4-byte boundary
 }
 
 }  // namespace

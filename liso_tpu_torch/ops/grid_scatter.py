@@ -42,13 +42,6 @@ def _check_cuda(*tensors):
     return dev
 
 
-def _int32(cells: torch.Tensor) -> torch.Tensor:
-    """cells as contiguous int32, without a copy where they already are."""
-    if cells.dtype == torch.int32 and cells.is_contiguous():
-        return cells
-    return cells.to(torch.int32).contiguous()
-
-
 def grid_scatter_max_occ_plain(
     feats: torch.Tensor, cells: torch.Tensor, num_cells: int
 ):
@@ -79,7 +72,7 @@ def _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain):
     feats = feats.contiguous()
     if feats.data_ptr() % (4 * feats.element_size()):
         raise ValueError("feats must be aligned to 4 elements (vector loads)")
-    cells = _int32(cells)
+    cells = cells.to(torch.int32).contiguous()
     grid = torch.empty((b, num_cells, c), dtype=feats.dtype, device=feats.device)
     occ = torch.empty((b, num_cells, 1), dtype=torch.float32, device=feats.device)
     kernels.check(
@@ -165,7 +158,7 @@ def scatter_max_vjp(feats: torch.Tensor, cells: torch.Tensor,
     if any(t.data_ptr() % (4 * t.element_size()) for t in (feats, grid, g_grid)):
         raise ValueError("feats, grid, g_grid must be aligned to 4 elements "
                          "(vector loads)")
-    cells = _int32(cells)
+    cells = cells.to(torch.int32).contiguous()
     out = torch.empty_like(feats)
     kernels.check(
         kernels.function("scatter_max_vjp")(
@@ -200,7 +193,7 @@ def _grid_gather_fwd(grid, cells, plain):
     b, nc, c = grid.shape
     n = cells.shape[1]
     grid = grid.contiguous()
-    cells = _int32(cells)
+    cells = cells.to(torch.int32).contiguous()
     out = torch.empty(b, n, c, dtype=grid.dtype, device=grid.device)
     kernels.check(
         kernels.function("grid_gather")(
@@ -276,7 +269,7 @@ def grid_reduce_add(g: torch.Tensor, cells: torch.Tensor, num_cells: int,
         raise ValueError(f"g {tuple(g.shape)}, cells {tuple(cells.shape)}")
     b, n, c = g.shape
     g = g.contiguous()
-    cells = _int32(cells)
+    cells = cells.to(torch.int32).contiguous()
     out = torch.empty(b, num_cells, c, dtype=g.dtype, device=g.device)
     kernels.check(
         kernels.function("grid_reduce_add")(

@@ -61,7 +61,23 @@ Phases, each printing JSON lines:
                step; one step from the same state through the plain
                versions (loss, gradient norm; cuDNN deterministic for both);
                predict_step timed (median of 10) and its kept boxes held to
-               the plain run's.
+               the plain run's;
+  7. slim_experiment - the SLIM experiment path
+               (train/slim_experiment.py) at slim_liso +
+               slim_highest_resolution (grid 920 over 120 m, batch 1, 6
+               iterations, fp32, RMSprop), DataCfg(n_max=65536,
+               m_max=131072) as slim_cli builds it without --fast-test, on
+               a synthetic drive of 65536 background points, 8 frames: K1
+               and the fused VJP held bitwise at fp32 C = 64 over the 846400
+               cells; SlimExperiment.run for 6 steps through the Prefetcher
+               and its fork workers (step and data-wait ms, launches reset
+               just before and read just after); a checkpoint saved and
+               restored bitwise into a fresh experiment of another seed;
+               evaluate on 2 batches (AEE finite); export_flow of 2 samples
+               (the 6-pair npz schema); one sample's export against the
+               plain versions (flow within FLOW_ATOL, dynamicness within
+               PROBS_ATOL, the threshold equal); one train step and one
+               predict_step under the profiler.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. A failed check, or any exception, prints one
 line {"phase": "failed", "check": "<function>:<line>", "message": "..."}
@@ -97,6 +113,10 @@ D_MAX_LR, D_TOTAL_STEPS, D_PREDICTS = 1e-3, 30000 * 2 + 2, 10
 DET_LOSS_RTOL = 1e-5
 DET_GRAD_NORM_RTOL = 1e-3
 DET_BOX_ATOL = 1e-4
+# the SLIM experiment path: slim_cli's data capacity without --fast-test
+# (n_max 65536), a synthetic drive of 65536 background points and its 2
+# default moving objects, E_FRAMES frames; E_STEPS steps, E_EXPORTS exports
+E_PTS, E_FRAMES, E_STEPS, E_EXPORTS = 65536, 8, 6, 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -157,31 +177,36 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def kernel_only_ms(fn, kernel, reps=20):
+def kernel_only_ms(fn, kernel, reps=20, sessions=3):
     """Mean device ms of one launch of the kernel whose name holds
     `kernel`, over the launches torch.profiler records in `reps` calls of
     `fn` (it may drop some of a run's launches): the kernel alone, without
-    the wrapper's host time that CUDA-event timing of a short call holds."""
+    the wrapper's host time that CUDA-event timing of a short call holds.
+    A profiler session that records no launch at all (one did, of 20 K2
+    calls, on an H100) is repeated, up to `sessions` in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if kernel in ev.key and ev.self_cpu_time_total == 0 and dev_us:
-            us += dev_us
-            count += ev.count
-    if count == 0:
-        fail(f"the profiler saw no launch of {kernel} in {reps} calls")
-    return us / count / 1e3
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0.0)
+            if kernel in ev.key and ev.self_cpu_time_total == 0 and dev_us:
+                us += dev_us
+                count += ev.count
+        if count:
+            return us / count / 1e3
+    fail(f"the profiler saw no launch of {kernel} in {reps} calls, in "
+         f"{sessions} sessions")
 
 
 def host_ms(fn, reps=20):
@@ -1290,6 +1315,249 @@ def phase_detect_train(kernels):
     return kres, res, (rows, host_rows, prows)
 
 
+def state_equal(a, b) -> list:
+    """Keys where two SlimTrainer.state_dict() trees differ: tensors by
+    bit pattern (dtype and shape too), everything else by ==."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"keys {sorted(set(a) ^ set(b))}"]
+        return [f"{k}/{d}" for k in a for d in state_equal(a[k], b[k])]
+    if isinstance(a, torch.Tensor):
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and bool((a.reshape(-1).view(torch.uint8)
+                          == b.reshape(-1).view(torch.uint8)).all()))
+        return [] if same else [""]
+    return [] if a == b else [f"{a!r} != {b!r}"]
+
+
+def confirm_launches(fn, expect, what):
+    """profile_window(fn), whose launch counts must equal `expect`; a
+    profiler session that drops launches is repeated once."""
+    seen = []
+    for _ in range(2):
+        prof = profile_window(fn)
+        if prof[0] == expect:
+            return prof
+        seen.append(prof[0])
+    fail(f"profiler saw launches {seen} in {what}, expected {expect}")
+
+
+def phase_slim_experiment(kernels):
+    """The SLIM experiment path (train/slim_experiment.py) at full width:
+    slim_liso + slim_highest_resolution, fp32, batch SLIM.batch_size,
+    DataCfg(n_max=65536, m_max=131072) as slim_cli builds it without
+    --fast-test, on a SyntheticDataset of 65536 background points."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.cli.common import DEFAULT_CFG
+    from liso_tpu_torch.data.dataset import DataCfg, collate
+    from liso_tpu_torch.data.synthetic import SyntheticDataset
+    from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
+    from liso_tpu_torch.ops.bev import BevSetup
+    from liso_tpu_torch.train.slim_experiment import (
+        EXPORT_PAIRS,
+        SlimExperiment,
+        batch_to_flow_sample,
+        export_sample,
+    )
+    from liso_tpu_torch.utils.checkpoint import (
+        STATE_FILE,
+        latest_step,
+        save_checkpoint,
+    )
+    from liso_tpu_torch.utils.config import parse_config, save_config
+
+    t_phase = time.perf_counter()
+    cfg = parse_config(DEFAULT_CFG, ["slim_liso", "slim_highest_resolution"])
+    bev = BevSetup(tuple(cfg.data.bev_range_m), tuple(cfg.data.img_grid_size))
+    got_cfg = (bev.grid_size, bev.bev_range_m, int(cfg.SLIM.batch_size),
+               int(cfg.SLIM.model.num_iters))
+    if got_cfg != ((T_GRID, T_GRID), (T_RANGE, T_RANGE), 1, T_ITERS):
+        fail(f"slim_liso + slim_highest_resolution gave {got_cfg}")
+    dcfg = DataCfg(bev=bev, n_max=E_PTS, m_max=2 * E_PTS,
+                   use_skip_frames=str(cfg.data.use_skip_frames),
+                   flow_source=str(cfg.data.flow_source),
+                   odom_source=str(cfg.data.odom_source))
+    train_ds = SyntheticDataset(dcfg, n_frames=E_FRAMES, seed=0, n_points=E_PTS)
+    val_ds = SyntheticDataset(dcfg, n_frames=2, seed=1, n_points=E_PTS)
+    sample0 = train_ds[0]
+    kept = int(sample0.frame_t0.valid.sum())
+    tmp = tempfile.TemporaryDirectory(prefix="slim_experiment_", dir=OUT_DIR)
+    try:
+        log_dir = Path(tmp.name) / "run"
+        save_config(cfg, log_dir / "config.yml")
+        exp = SlimExperiment(cfg, bev, train_ds, val_ds, log_dir, device="cuda")
+        if exp.trainer.model.compute_dtype is not None:
+            fail("the experiment's trainer does not train in fp32")
+
+        # K1 and the fused VJP at this path's shapes: fp32 C = 64 over the
+        # 846400 cells, on the cells of a real frame (their own generators)
+        fs0 = batch_to_flow_sample(collate([sample0]), "cuda")
+        cells = prepare_pillar_inputs(fs0.pcl_t0.pcl, fs0.pcl_t0.valid,
+                                      bev).cell
+        kres = [check(torch.Generator(device="cuda").manual_seed(seed), cells,
+                      bev.num_cells, 64, torch.float32)
+                for check, seed in ((check_scatter_max, 9),
+                                    (check_scatter_max_vjp, 10))]
+
+        # 1. run: E_STEPS steps through the Prefetcher and its workers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trainer = exp.run(max_steps=E_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches = dict(kernels.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        per_step = {"grid_scatter_max_occ": 2, "corr_window_fwd": 2 * T_ITERS,
+                    "scatter_max_vjp": 2, "grid_reduce_add_c1": 1,
+                    "corr_window_bwd": 2 * T_ITERS, "knn_banded": 2}
+        expect = {k: per_step.get(k, 0) * E_STEPS for k in run_launches}
+        if run_launches != expect:
+            fail(f"experiment run launches {run_launches}, expected {expect}")
+        if trainer.step != E_STEPS or latest_step(log_dir / "ckpts") != E_STEPS:
+            fail(f"after run: step {trainer.step}, latest checkpoint "
+                 f"{latest_step(log_dir / 'ckpts')}, expected {E_STEPS}")
+        if not all(bool(torch.isfinite(p).all()) for p in trainer.params.values()):
+            fail("experiment parameters not finite after the run")
+        timings = exp.step_timings
+        step_ms = [t["step_s"] * 1e3 for t in timings]
+        wait_ms = [t["data_wait_s"] * 1e3 for t in timings]
+
+        # 2. checkpoint: save and restore times and bytes; a fresh
+        # experiment from another seed restores the run's state bitwise
+        t0 = time.perf_counter()
+        target = save_checkpoint(Path(tmp.name) / "timed_ckpts", E_STEPS, trainer)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_bytes = (target / STATE_FILE).stat().st_size
+        cfg2 = parse_config(DEFAULT_CFG, ["slim_liso", "slim_highest_resolution"],
+                            [["SLIM", "seed", "1"]])
+        exp2 = SlimExperiment(cfg2, bev, train_ds, val_ds, log_dir, device="cuda")
+        if not state_equal(exp2.trainer.state_dict()["model"],
+                           trainer.state_dict()["model"]):
+            fail("a fresh experiment from seed 1 starts with the run's weights")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp2.maybe_restore()
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        diff = state_equal(exp2.trainer.state_dict(), trainer.state_dict())
+        if diff:
+            fail(f"restored state differs from the saved one at {diff[:8]}")
+        del exp2
+
+        # 3. evaluate
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        flow_metrics = exp.evaluate(E_STEPS, max_batches=2)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_launches = dict(kernels.launches)
+        if not np.isfinite(flow_metrics.get("AEE_overall", np.nan)):
+            fail(f"evaluate: AEE_overall not finite: {flow_metrics}")
+
+        # 4. export_flow on 2 samples: the 6-pair schema
+        preds = Path(tmp.name) / "preds"
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        n = exp.export_flow(train_ds, preds, max_samples=E_EXPORTS)
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        export_launches = dict(kernels.launches)
+        per_predict = {"grid_scatter_max_occ": 2, "corr_window_fwd": 2 * T_ITERS}
+        n_predicts = E_EXPORTS * len(EXPORT_PAIRS)
+        expect = {k: per_predict.get(k, 0) * n_predicts for k in export_launches}
+        if n != E_EXPORTS or export_launches != expect:
+            fail(f"export_flow wrote {n} samples with launches "
+                 f"{export_launches}, expected {E_EXPORTS} and {expect}")
+        files = sorted(preds.glob("*.npz"))
+        h, w = bev.grid_size
+        for f in files:
+            d = np.load(f)
+            want = {"bev_range_m": (2,), "static_threshold": ()}
+            for a, b in EXPORT_PAIRS:
+                for name in (f"{a}_{b}", f"{b}_{a}"):
+                    want[f"bev_raw_flow_{name}"] = (h, w, 2)
+                    want[f"bev_dynamicness_{name}"] = (h, w)
+            shapes = {k: d[k].shape for k in d.files}
+            if shapes != want or not all(np.isfinite(d[k]).all() for k in d.files):
+                fail(f"{f.name}: keys and shapes {shapes} (want {want}) or "
+                     "not finite")
+
+        # 5. one sample's export with kernels against the plain versions
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = export_sample(trainer, train_ds, 0)
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        ref = export_sample(trainer, train_ds, 0, plain=True)
+        flow_diff = max(float(np.abs(got[k] - ref[k]).max())
+                        for k in got if k.startswith("bev_raw_flow"))
+        dyn_diff = max(float(np.abs(got[k] - ref[k]).max())
+                       for k in got if k.startswith("bev_dynamicness"))
+        if (flow_diff > FLOW_ATOL or dyn_diff > PROBS_ATOL
+                or not np.array_equal(got["static_threshold"],
+                                      ref["static_threshold"])):
+            fail(f"export kernels vs plain: flow {flow_diff} m (limit "
+                 f"{FLOW_ATOL}), dynamicness {dyn_diff} (limit {PROBS_ATOL}), "
+                 f"threshold {got['static_threshold']} vs "
+                 f"{ref['static_threshold']}")
+
+        # 7. the profiler confirms one predict_step's and one train step's
+        # launches (after every check: the step moves the state)
+        zero = {k: 0 for k in kernels.launches}
+        pcounts, pdev_ms, _, _ = confirm_launches(
+            lambda: trainer.predict_step(fs0), {**zero, **per_predict},
+            "an experiment predict_step")
+        counts, dev_ms, rows, _ = confirm_launches(
+            lambda: trainer.train_step(fs0), {**zero, **per_step},
+            "an experiment train step")
+    finally:
+        tmp.cleanup()
+    res = {
+        "phase": "slim_experiment",
+        "configs": "slim_liso + slim_highest_resolution",
+        "grid": T_GRID, "range_m": T_RANGE, "points": E_PTS,
+        "batch": int(cfg.SLIM.batch_size), "iters": T_ITERS, "dtype": "fp32",
+        "optimizer": str(cfg.SLIM.optimizer),
+        "detect_anomaly": bool(cfg.SLIM.set_detect_anomaly),
+        "frames": E_FRAMES, "points_per_frame": len(train_ds.load_sample_dict(0)["pcl_t0"]),
+        "points_kept_t0": kept,
+        "workers": int(cfg.data.num_workers),
+        "steps": E_STEPS, "run_s": run_s,
+        "step_ms": step_ms,
+        "step_ms_mean": statistics.mean(step_ms),
+        "step_ms_median": statistics.median(step_ms),
+        "step_ms_max": max(step_ms),
+        "data_wait_ms": wait_ms,
+        "data_wait_ms_mean": statistics.mean(wait_ms),
+        "data_wait_ms_max": max(wait_ms),
+        "peak_memory_gb": peak_gb,
+        "launches": run_launches,
+        "checkpoint_save_ms": save_ms, "checkpoint_restore_ms": restore_ms,
+        "checkpoint_bytes": ckpt_bytes,
+        "eval_s": eval_s, "eval_launches": eval_launches,
+        "flow_metrics": flow_metrics,
+        "export_samples": n, "export_ms_per_sample": export_s * 1e3 / n,
+        "export_sample_ms_unwritten": sample_ms,
+        "export_launches": export_launches,
+        "export_max_abs_diff_vs_plain": {"flow_m": flow_diff,
+                                         "dynamicness": dyn_diff},
+        "tolerance": {"flow_m": FLOW_ATOL, "dynamicness": PROBS_ATOL},
+        "profiled_step": {"launches": counts, "device_ms": dev_ms,
+                          "device_busy_share": dev_ms / statistics.median(step_ms),
+                          "device_ms_by_family": families(rows)},
+        "profiled_predict": {"launches": pcounts, "device_ms": pdev_ms},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return kres, res
+
+
 def run_path(serve, slim, det, frames, valid, plain=False):
     """fused_forward, then encode + chained fused_streaming steps."""
     import torch
@@ -1507,15 +1775,27 @@ def main() -> int:
     by_name = {r["name"]: r for r in kres}
     for r in dkres:
         by_name[r["name"]]["detect_train_shape"] = shape_entry(r)
+    torch.cuda.empty_cache()
+    ekres, experiment = phase_slim_experiment(kernels)
+    emit({**experiment, "nvidia_smi": smi})
+    for r in ekres:
+        emit({"phase": "kernel", "path": "slim_experiment", **r})
+        by_name[r["name"]]["slim_experiment_shape"] = shape_entry(r)
     for r in kres:
-        r["launches_by_path"] = {"serve": launches[r["name"]],
-                                 "train": train["launches"][r["name"]],
-                                 "detect_train": detect["launches"][r["name"]]}
+        name = r["name"]
+        r["launches_by_path"] = {
+            "serve": launches[name], "train": train["launches"][name],
+            "detect_train": detect["launches"][name],
+            "slim_experiment": (experiment["launches"][name]
+                                + experiment["eval_launches"][name]
+                                + experiment["export_launches"][name])}
         r["launches"] = sum(r["launches_by_path"].values())
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump({"device": device, "nvidia_smi": smi, "kernels": kres,
                    "detect_train_kernels": dkres, "path": path,
                    "train": train, "detect_train": detect,
+                   "slim_experiment_kernels": ekres,
+                   "slim_experiment": experiment,
                    "ptxas": ptxas,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     with open(OUT_DIR / "chip_smoke_profile.txt", "w") as f:
@@ -1555,10 +1835,13 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "kernel_only_ms", "host_ms",
             "library_ms_prezeroed", "train_shape", "detect_train_shape",
+            "slim_experiment_shape",
             "second_shape", "decoder_shape", "host_steps_ms",
             "skewed_layout", "slim_step_layout", "serving_step_layout",
             "needed_pairs", "visited_pairs", "visited_over_needed",
             "band_bound_ms", "band_agreement")
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
+          "slim_experiment_s": experiment["phase_s"], "nvidia_smi": smi})
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -1,8 +1,32 @@
-"""Segment reductions over cell-sorted points (port of the parts of
-liso_tpu/ops/scatter.py that the serving path uses)."""
+"""Scatter ops onto BEV grids and segment reductions over cell-sorted
+points (port of liso_tpu/ops/scatter.py, less `gather_grid`). Ids equal to
+`num_cells` are the drop bucket."""
 from __future__ import annotations
 
 import torch
+
+
+def scatter_add_grid(values: torch.Tensor, cell_id: torch.Tensor,
+                     num_cells: int) -> torch.Tensor:
+    """values [N, C] or [N], cell_id [N] in [0, num_cells] (num_cells is
+    the drop bucket) -> per-cell sums [num_cells, C] or [num_cells]. In JAX
+    an XLA segment_sum, not a Pallas kernel: here index_add_."""
+    out = values.new_zeros((num_cells + 1,) + tuple(values.shape[1:]))
+    out.index_add_(0, cell_id.long(), values)
+    return out[:num_cells]
+
+
+def scatter_mean_grid(values: torch.Tensor, cell_id: torch.Tensor,
+                      num_cells: int, eps: float = 1e-8):
+    """Per-cell means and point counts: (sum / max(count, eps), count),
+    counts [num_cells, 1] for 2-D values, else [num_cells]."""
+    s = scatter_add_grid(values, cell_id, num_cells)
+    cnt = scatter_add_grid(torch.ones(cell_id.shape, dtype=torch.float32,
+                                      device=cell_id.device),
+                           cell_id, num_cells)
+    if values.dim() == 2:
+        cnt = cnt[:, None]
+    return s / cnt.clamp(min=eps), cnt
 
 
 def sorted_segment_totals(values: torch.Tensor, cells: torch.Tensor):

@@ -15,7 +15,6 @@ and the caller's settings are put back after it.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
@@ -29,48 +28,12 @@ from liso_tpu_torch.ops.bev import BevSetup
 from liso_tpu_torch.ops.boxes import Boxes
 from liso_tpu_torch.ops.nms import batched_nms
 from liso_tpu_torch.serve import resolve_device
-from liso_tpu_torch.train.slim_train import global_norm
+from liso_tpu_torch.train.slim_train import (
+    adamw_update_,
+    fp32_precision,
+    global_norm,
+)
 from liso_tpu_torch.utils.schedules import onecycle
-
-# optax.adamw's defaults
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
-
-def adamw_update_(params, grads, mu, nu, count: int, lr: float,
-                  weight_decay: float) -> None:
-    """One optax.adamw step in place (optax 0.2.6: `scale_by_adam`,
-    `add_decayed_weights` on every leaf, `scale_by_learning_rate`), with
-    `count` the optimizer's count before this update and `lr` the
-    schedule's rate at that count:
-        mu <- b1 mu + (1 - b1) g,   nu <- b2 nu + (1 - b2) g^2
-        u  <- (mu / (1 - b1^(count+1))) / (sqrt(nu / (1 - b2^(count+1))) + eps)
-        p  <- p + (-lr) (u + weight_decay p)
-    The bias corrections are taken in fp32, as optax takes them."""
-    c = torch.tensor(count + 1, dtype=torch.float32)
-    bc1 = float(1 - torch.tensor(ADAM_B1, dtype=torch.float32) ** c)
-    bc2 = float(1 - torch.tensor(ADAM_B2, dtype=torch.float32) ** c)
-    with torch.no_grad():
-        for p, g, m, v in zip(params, grads, mu, nu):
-            m.mul_(ADAM_B1).add_((1 - ADAM_B1) * g)
-            v.mul_(ADAM_B2).add_((1 - ADAM_B2) * g.square())
-            u = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
-            p.add_(-lr * (u + weight_decay * p))
-
-
-@contextlib.contextmanager
-def fp32_precision():
-    """TF32 off for cuDNN and cuBLAS (PyTorch's default lets cuDNN take
-    TF32 for fp32 convolutions) while the block runs; the caller's settings
-    are put back after it."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 class DetectorTrainer:

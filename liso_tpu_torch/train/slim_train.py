@@ -2,14 +2,18 @@
 
 `SlimTrainer` builds the model on the card unless the caller passes
 `device="cpu"` (without CUDA it raises) and holds the train state: the
-model's parameters and batch-norm statistics, the RMSprop second moment
-`nu`, the step, and the moving-average threshold `movavg`. `train_step`
-runs one step in place: the forward over all RAFT iterations in both
-directions, per-iteration decode and loss, one batched 1-NN per direction,
-the threshold update, and the RMSprop update with optax's semantics.
+model's parameters and batch-norm statistics, the optimizer's moments
+(RMSprop's `nu`; Adam's `mu`, `nu` and `count`), the step, and the
+moving-average threshold `movavg`. `train_step` runs one step in place: the
+forward over all RAFT iterations in both directions, per-iteration decode
+and loss, one batched 1-NN per direction, the threshold update, and the
+optimizer's update with optax's semantics, optionally after clipping the
+gradient by its global norm. Both steps run with TF32 off (fp32 convs and
+matmuls stay fp32), as DetectorTrainer's do.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -24,6 +28,7 @@ from liso_tpu_torch.losses.slim_loss import (
 from liso_tpu_torch.models.layers import init_weights
 from liso_tpu_torch.models.pillar_encoder import pillar_coords
 from liso_tpu_torch.models.slim import (
+    MovAvgState,
     SlimModel,
     movavg_init,
     movavg_update_batched,
@@ -37,11 +42,22 @@ from liso_tpu_torch.utils.schedules import polynomial_decay_with_warmup
 # optax.rmsprop's defaults: nu starts at 0, eps inside the square root
 RMSPROP_DECAY = 0.9
 RMSPROP_EPS = 1e-8
+# optax.adam's and optax.adamw's defaults
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 def global_norm(tensors) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum of squares of every element."""
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def clip_by_global_norm(grads, g_norm: torch.Tensor, max_norm: float):
+    """optax.clip_by_global_norm given the norm: every tensor scaled as
+    (g / g_norm) * max_norm when g_norm >= max_norm, else kept.
+    (torch.nn.utils.clip_grad_norm_ adds 1e-6 to the norm and clamps the
+    coefficient: a different result.)"""
+    keep = g_norm < max_norm
+    return [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
 
 
 def rmsprop_update_(params, grads, nu, lr: torch.Tensor) -> None:
@@ -56,6 +72,46 @@ def rmsprop_update_(params, grads, nu, lr: torch.Tensor) -> None:
             p.add_((-lr) * (g * torch.rsqrt(v + RMSPROP_EPS)))
 
 
+def adamw_update_(params, grads, mu, nu, count: int, lr,
+                  weight_decay: float) -> None:
+    """One optax.adamw step in place (optax 0.2.6: `scale_by_adam`,
+    `add_decayed_weights` on every leaf, `scale_by_learning_rate`), with
+    `count` the optimizer's count before this update and `lr` the
+    schedule's rate at that count (a float or a 0-dim tensor):
+        mu <- b1 mu + (1 - b1) g,   nu <- b2 nu + (1 - b2) g^2
+        u  <- (mu / (1 - b1^(count+1))) / (sqrt(nu / (1 - b2^(count+1))) + eps)
+        p  <- p + (-lr) (u + weight_decay p)
+    With weight_decay 0 this is optax.adam. The bias corrections are taken
+    in fp32, as optax takes them."""
+    c = torch.tensor(count + 1, dtype=torch.float32)
+    bc1 = float(1 - torch.tensor(ADAM_B1, dtype=torch.float32) ** c)
+    bc2 = float(1 - torch.tensor(ADAM_B2, dtype=torch.float32) ** c)
+    with torch.no_grad():
+        for p, g, m, v in zip(params, grads, mu, nu):
+            m.mul_(ADAM_B1).add_((1 - ADAM_B1) * g)
+            v.mul_(ADAM_B2).add_((1 - ADAM_B2) * g.square())
+            u = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
+            if weight_decay:
+                u = u + weight_decay * p
+            p.add_(-lr * u)
+
+
+@contextlib.contextmanager
+def fp32_precision():
+    """TF32 off for cuDNN and cuBLAS (PyTorch's default lets cuDNN take
+    TF32 for fp32 convolutions) while the block runs; the caller's settings
+    are put back after it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 class SlimTrainer:
     """Model, train state and the SLIM train / predict steps."""
 
@@ -67,14 +123,25 @@ class SlimTrainer:
         predict_weight_for_static_aggregation=False,
         use_static_aggr_flow_for_aggr_flow: bool = False,
         loss_cfg: Optional[SlimLossCfg] = None,
+        optimizer: str = "rmsprop",
         initial_lr: float = 1e-4,
         warmup_steps: int = 2000,
         train_steps: int = 150_000,
         num_train_samples: int = 1,
+        grad_clip_norm: float = 0.0,
         compute_dtype=None,
         seed: int = 0,
+        detect_anomaly: bool = False,
         device=None,
     ):
+        """optimizer: "rmsprop" or "adam" (optax's defaults), after
+        clipping by the global norm when grad_clip_norm > 0.
+        detect_anomaly: check the loss and the gradient norm of every step
+        for non-finite values before the update; on a failure re-run the
+        batch under torch.autograd.detect_anomaly() and raise
+        FloatingPointError (the port's counterpart of jax_debug_nans)."""
+        if optimizer not in ("rmsprop", "adam"):
+            raise ValueError(optimizer)
         self.device = resolve_device(device)
         self.bev = bev
         self.num_iters = num_iters
@@ -101,10 +168,52 @@ class SlimTrainer:
         self.voxel_centers = voxel_center_coords(bev, self.device)
         self.lr_schedule = polynomial_decay_with_warmup(
             initial_lr, warmup_steps, train_steps)
+        self.optimizer = optimizer
+        self.grad_clip_norm = grad_clip_norm
+        self.detect_anomaly = detect_anomaly
         self.params = dict(self.model.named_parameters())
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        # Adam's first moment and count (its bias correction); empty and 0
+        # under RMSprop
+        self.mu = ({k: torch.zeros_like(p) for k, p in self.params.items()}
+                   if optimizer == "adam" else {})
+        self.count = 0
         self.step = 0
         self.movavg = movavg_init(num_train_samples, device=self.device)
+
+    # ------------------------------------------------------------------
+    def state_dict(self) -> dict:
+        """The whole train state (live tensors, not copies): parameters and
+        batch-norm statistics, the optimizer's moments and count, the step,
+        and the threshold state as a dict of tensors."""
+        return {
+            "step": self.step,
+            "model": self.model.state_dict(),
+            "optimizer": {"name": self.optimizer, "nu": dict(self.nu),
+                          "mu": dict(self.mu), "count": self.count},
+            "movavg": self.movavg._asdict(),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Put a state_dict() back, copying every tensor into place."""
+        opt = state["optimizer"]
+        if opt["name"] != self.optimizer:
+            raise ValueError(f"state of optimizer {opt['name']!r}, "
+                             f"trainer uses {self.optimizer!r}")
+        self.model.load_state_dict(state["model"])
+        with torch.no_grad():
+            for name in ("nu", "mu"):
+                mine = getattr(self, name)
+                if set(opt[name]) != set(mine):
+                    raise KeyError(f"{name} leaves "
+                                   f"{sorted(set(opt[name]) ^ set(mine))} differ")
+                for k, v in opt[name].items():
+                    mine[k].copy_(v)
+        self.count = int(opt["count"])
+        self.step = int(state["step"])
+        self.movavg = MovAvgState(**{
+            k: torch.as_tensor(v).to(self.device, torch.float32).clone()
+            for k, v in state["movavg"].items()})
 
     # ------------------------------------------------------------------
     def _sort_batch(self, batch: FlowSample):
@@ -189,9 +298,35 @@ class SlimTrainer:
     # ------------------------------------------------------------------
     def train_step(self, batch: FlowSample, plain: bool = False) -> dict:
         """One step in place. Returns the JAX train step's metrics (0-dim
-        tensors): the last iteration's loss terms, `loss`, `grad_norm` and
-        `lr` (the schedule at this step; 0 at step 0)."""
-        params = list(self.params.values())
+        tensors): the last iteration's loss terms, `loss`, `grad_norm` (of
+        the gradient before clipping) and `lr` (the schedule at this step;
+        0 at step 0)."""
+        with fp32_precision():
+            params = list(self.params.values())
+            loss, movavg, metrics, grads = self._loss_and_grads(
+                params, batch, plain)
+            g_norm = global_norm(grads)
+            if self.detect_anomaly and not bool(
+                    torch.isfinite(torch.stack([loss.detach(), g_norm])).all()):
+                self._raise_anomaly(params, batch, plain, loss, g_norm)
+            if self.grad_clip_norm > 0:
+                grads = clip_by_global_norm(grads, g_norm, self.grad_clip_norm)
+            lr = self.lr_schedule(self.step).to(self.device)
+            if self.optimizer == "adam":
+                adamw_update_(params, grads, list(self.mu.values()),
+                              list(self.nu.values()), self.count, lr, 0.0)
+                self.count += 1
+            else:
+                rmsprop_update_(params, grads, list(self.nu.values()), lr)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = g_norm
+        metrics["lr"] = lr
+        self.step += 1
+        self.movavg = movavg
+        return metrics
+
+    def _loss_and_grads(self, params, batch: FlowSample, plain: bool):
         for p in params:
             p.grad = None
         loss, movavg, metrics, _ = self._forward_and_loss(
@@ -199,17 +334,23 @@ class SlimTrainer:
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        lr = self.lr_schedule(self.step).to(self.device)
-        rmsprop_update_(params, grads, list(self.nu.values()), lr)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
-        metrics["grad_norm"] = global_norm(grads)
-        metrics["lr"] = lr
-        self.step += 1
-        self.movavg = movavg
-        return metrics
+        return loss, movavg, metrics, grads
+
+    def _raise_anomaly(self, params, batch, plain, loss, g_norm):
+        """The step's loss or gradient is not finite: re-run the batch
+        under autograd's anomaly mode, which names the backward op that
+        first gave a non-finite value, and raise. No update is applied."""
+        msg = (f"SLIM train step {self.step}: loss {float(loss)}, "
+               f"grad norm {float(g_norm)}")
+        try:
+            with torch.autograd.detect_anomaly():
+                self._loss_and_grads(params, batch, plain)
+        except RuntimeError as e:
+            raise FloatingPointError(msg) from e
+        raise FloatingPointError(msg + " (anomaly mode named no op)")
 
     @torch.no_grad()
+    @fp32_precision()
     def predict_step(self, batch: FlowSample, plain: bool = False):
         """Final-iteration predictions (pred_fw, pred_bw) with the per-point
         outputs restored to the caller's point order (the forward runs on

@@ -102,21 +102,33 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     return module
 
 
+def _load_moments(trainer, state: Mapping, names) -> None:
+    """Copy the params-shaped optimizer moments `names` of a JAX state into
+    the trainer's dicts of the same names."""
+    for name in names:
+        moment = flax_state_dict(trainer.model, {"params": state[name]})
+        mine = getattr(trainer, name)
+        if set(moment) != set(mine):
+            raise KeyError(f"{name} leaves {sorted(set(moment) ^ set(mine))} differ")
+        with torch.no_grad():
+            for key, value in moment.items():
+                mine[key].copy_(value)
+
+
 def load_slim_train_state(trainer, state: Mapping):
     """Carry a JAX `SlimTrainState` across into a `SlimTrainer`, given as
-    numpy: {"step", "params", "batch_stats", "nu" (the RMSprop second
-    moment, a params-shaped tree), "movavg" ({field: array} of
-    MovAvgState)}. The optimizer's schedule count must equal the step.
-    The JAX state's class counters of the supervised threshold are not
-    carried: the port trains without them."""
+    numpy: {"step", "params", "batch_stats", "nu", "movavg" ({field: array}
+    of MovAvgState)} and, for a trainer with optimizer="adam", also "mu"
+    and "count" (Adam's count, `ScaleByAdamState.count`). "nu" (and "mu")
+    are params-shaped trees: RMSprop's second moment, or Adam's moments.
+    The optimizer's schedule count must equal the step. The JAX state's
+    class counters of the supervised threshold are not carried: the port
+    trains without them."""
     load_flax_variables(trainer.model, {"params": state["params"],
                                         "batch_stats": state["batch_stats"]})
-    nu = flax_state_dict(trainer.model, {"params": state["nu"]})
-    if set(nu) != set(trainer.nu):
-        raise KeyError(f"nu leaves {sorted(set(nu) ^ set(trainer.nu))} differ")
-    with torch.no_grad():
-        for key, value in nu.items():
-            trainer.nu[key].copy_(value)
+    adam = trainer.optimizer == "adam"
+    _load_moments(trainer, state, ("mu", "nu") if adam else ("nu",))
+    trainer.count = int(state["count"]) if adam else 0
     trainer.step = int(state["step"])
     trainer.movavg = MovAvgState(**{
         k: torch.as_tensor(np.array(v), dtype=torch.float32,
@@ -133,14 +145,7 @@ def load_detector_train_state(trainer, state: Mapping):
     which its schedule reads)}."""
     load_flax_variables(trainer.model, {"params": state["params"],
                                         "batch_stats": state["batch_stats"]})
-    for name in ("mu", "nu"):
-        moment = flax_state_dict(trainer.model, {"params": state[name]})
-        mine = getattr(trainer, name)
-        if set(moment) != set(mine):
-            raise KeyError(f"{name} leaves {sorted(set(moment) ^ set(mine))} differ")
-        with torch.no_grad():
-            for key, value in moment.items():
-                mine[key].copy_(value)
+    _load_moments(trainer, state, ("mu", "nu"))
     trainer.step = int(state["step"])
     trainer.count = int(state["count"])
     return trainer

@@ -44,6 +44,8 @@ def gen():
         (2, 2048, 2500, 4, torch.float32, "end_cells"),
         (1, 100, 128 * 128, 64, torch.bfloat16, "uniform"),  # N < tile
         (2, 8192, 846400, 64, torch.bfloat16, "skewed"),
+        # the SLIM experiment's fp32 shape (C = 64 over 846400 cells)
+        (1, 65536, 846400, 64, torch.float32, "uniform"),
     ],
 )
 def test_grid_scatter_max_occ_bitwise(gen, b, n, nc, c, dtype, layout):
@@ -220,6 +222,8 @@ def test_scatter_max_vjp_bitwise(gen):
         (1, 65536, 846400, 64, torch.bfloat16, 5559, False),
         # the detector's: every point in the grid
         (2, 32768, 512 * 512, 64, torch.float32, 32768, False),
+        # the SLIM experiment's fp32 step: 33448 of 65536 points in the grid
+        (1, 65536, 846400, 64, torch.float32, 33448, False),
         # 8-byte vectors (rows not a multiple of 16 bytes), -0.0, +0.0, NaN
         (2, 4096, 3000, 4, torch.bfloat16, 3000, True),
         (2, 4096, 3000, 12, torch.bfloat16, 4096, True),

@@ -50,6 +50,12 @@ def test_package_imports_with_jax_blocked():
         "import liso_tpu_torch.data.centermaps, liso_tpu_torch.ops.nms\n"
         "import liso_tpu_torch.losses.centerpoint_loss\n"
         "import liso_tpu_torch.kernels\n"
+        "import liso_tpu_torch.data.pipeline, liso_tpu_torch.data.synthetic\n"
+        "import liso_tpu_torch.data.kitti, liso_tpu_torch.data.nuscenes\n"
+        "import liso_tpu_torch.data.waymo, liso_tpu_torch.data.icp\n"
+        "import liso_tpu_torch.data.ground, liso_tpu_torch.utils.checkpoint\n"
+        "import liso_tpu_torch.train.slim_experiment\n"
+        "import liso_tpu_torch.cli.slim_cli, liso_tpu_torch.visu.bbox_image\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -1094,12 +1094,10 @@ def phase_train(kernels):
     # two profiled steps, each in its own profiler session: one call's
     # profile once reported every kernel at half its duration, and a second
     # sample shows such a session up
-    profiled = [profile_window(lambda: trainer.train_step(batch))
-                for _ in range(2)]
-    counts, dev_ms, rows, host_rows = profiled[0]
-    if counts != {**{k: 0 for k in launches}, **per_step}:
-        fail(f"profiler saw launches {counts} in a SLIM train step, "
-             f"expected {per_step}")
+    counts, dev_ms, rows, host_rows = confirm_launches(
+        lambda: trainer.train_step(batch),
+        {**{k: 0 for k in launches}, **per_step}, "a SLIM train step")
+    second_dev_ms = profile_window(lambda: trainer.train_step(batch))[1]
     restore(trainer, snap)
     mk = trainer.train_step(batch)
     restore(trainer, snap)
@@ -1127,7 +1125,7 @@ def phase_train(kernels):
         "launches": launches,
         "peak_memory_gb": peak_gb,
         "profiled_step": {"launches": counts, "device_ms": dev_ms,
-                          "device_ms_second_session": profiled[1][1],
+                          "device_ms_second_session": second_dev_ms,
                           "searchsorted": searchsorted_stats(rows),
                           "device_ms_by_family": families(rows)},
         "kernel_vs_plain": cmp,
@@ -1220,13 +1218,12 @@ def phase_detect_train(kernels):
         fail("detector parameters not finite after the train steps")
 
     snap = snapshot(trainer, ("mu", "nu", "step", "count"))
-    profiled = [profile_window(lambda: trainer.train_step(pts, valid, target))
-                for _ in range(2)]
-    counts, dev_ms, rows, host_rows = profiled[0]
     zero = {k: 0 for k in kernels.launches}
-    if counts != {**zero, **per_step}:
-        fail(f"profiler saw launches {counts} in a detector train step, "
-             f"expected {per_step}")
+    counts, dev_ms, rows, host_rows = confirm_launches(
+        lambda: trainer.train_step(pts, valid, target), {**zero, **per_step},
+        "a detector train step")
+    second_dev_ms = profile_window(
+        lambda: trainer.train_step(pts, valid, target))[1]
     # kernel step against plain step under cuDNN's deterministic algorithms,
     # so that the two differ only where the kernels could
     saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -1294,7 +1291,7 @@ def phase_detect_train(kernels):
         "launches": launches,
         "peak_memory_gb": peak_gb,
         "profiled_step": {"launches": counts, "device_ms": dev_ms,
-                          "device_ms_second_session": profiled[1][1],
+                          "device_ms_second_session": second_dev_ms,
                           "device_busy_share": dev_ms / statistics.median(step_ms),
                           "searchsorted": searchsorted_stats(rows),
                           "device_ms_by_family": families(rows)},
@@ -1692,23 +1689,18 @@ def main() -> int:
             fail(f"{name}: shape {tuple(x.shape)} (want {shape}) or not finite")
 
     fmap, cn = serve.encode(slim, frames[0], valid)
-    profiles = {
-        "fused_forward": profile_window(lambda: serve.fused_forward(
-            slim, det, frames[0], valid, frames[1], valid)),
-        "fused_streaming": profile_window(lambda: serve.fused_streaming(
-            slim, det, fmap, cn, frames[1], valid)),
-    }
     zero = {k: 0 for k in kernels.launches}
-    prof_expect = {
-        "fused_forward": {**zero, "grid_scatter_max_occ": 3,
-                          "corr_window_fwd": ITERS},
-        "fused_streaming": {**zero, "grid_scatter_max_occ": 1,
-                            "corr_window_fwd": ITERS},
+    profiles = {
+        "fused_forward": confirm_launches(
+            lambda: serve.fused_forward(slim, det, frames[0], valid, frames[1],
+                                        valid),
+            {**zero, "grid_scatter_max_occ": 3, "corr_window_fwd": ITERS},
+            "fused_forward"),
+        "fused_streaming": confirm_launches(
+            lambda: serve.fused_streaming(slim, det, fmap, cn, frames[1], valid),
+            {**zero, "grid_scatter_max_occ": 1, "corr_window_fwd": ITERS},
+            "fused_streaming"),
     }
-    for name, (counts, _, _, _) in profiles.items():
-        if counts != prof_expect[name]:
-            fail(f"profiler saw launches {counts} in {name}, expected "
-                 f"{prof_expect[name]}")
     # busy share: the profiled call's device time over the host time of the
     # same call with the profiler off (the profiler's own host cost varies
     # from run to run)

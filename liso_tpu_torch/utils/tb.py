@@ -1,9 +1,9 @@
-"""TensorBoard logging factory.
+"""TensorBoard logging factory (a copy of liso_tpu/utils/tb.py).
 
 Behavioral reference: liso/slim/utils/tb_factory.py:48-71 (cached named
-SummaryWriters with a default global step). Uses torch's pure-python
-SummaryWriter (torch is CPU-only here and only used for logging); degrades
-to a no-op writer when tensorboard is unavailable.
+SummaryWriters with a default global step). Uses torch's
+SummaryWriter; degrades to a no-op writer when tensorboard is
+unavailable.
 """
 from __future__ import annotations
 

@@ -77,7 +77,24 @@ Phases, each printing JSON lines:
                (the 6-pair npz schema); one sample's export against the
                plain versions (flow within FLOW_ATOL, dynamicness within
                PROBS_ATOL, the threshold equal); one train step and one
-               predict_step under the profiler.
+               predict_step under the profiler;
+  8. mining  - LisoSelfTraining.mine (train/liso_loop.py) as `mining_cli -c
+               bev_100m_512 centerpoint liso` composes it, on the synthetic
+               drive slim_cli builds (64 frames, n_max 65536): round 0 with
+               the flow-cluster bootstrap (no kernel), round 1 with the
+               detector (seeded random weights, the dims head's bias raised
+               by M_DIMS_BIAS) in chunks of 8 frames: K1 held bitwise and
+               timed at fp32 C 64, batch 8, 512^2 cells; launches reset
+               just before each round and read just after, and confirmed by
+               the profiler on one chunk; round 1 against itself through the
+               plain versions (cuDNN deterministic: the same detections,
+               track ids and boxes within DET_BOX_ATOL); round 0 on the
+               first M_CPU_FRAMES frames against the port on the CPU; the
+               DBs loaded back bitwise; seconds per round, ms per frame
+               (detect, the frame program), tracker host ms, refinement and
+               smoothing ms per track, tracks, boxes, DB bytes, the detect
+               stage's device busy share; smoothing eager against its CUDA
+               graph (bitwise) and the bike model on one track.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. A failed check, or any exception, prints one
 line {"phase": "failed", "check": "<function>:<line>", "message": "..."}
@@ -117,6 +134,20 @@ DET_BOX_ATOL = 1e-4
 # (n_max 65536), a synthetic drive of 65536 background points and its 2
 # default moving objects, E_FRAMES frames; E_STEPS steps, E_EXPORTS exports
 E_PTS, E_FRAMES, E_STEPS, E_EXPORTS = 65536, 8, 6, 2
+# the mining pass: `mining_cli -c bev_100m_512 centerpoint liso` on the
+# synthetic drive slim_cli builds without --fast-test (64 frames, n_max
+# 65536, grid 512 over 100 m, 100 boxes after NMS, min_track_age 4, 2000
+# smoothing iterations, detector chunks of 8). Round 1's detector: seeded
+# random weights with the dims head's bias raised by M_DIMS_BIAS (boxes of
+# about 6 m instead of 0.7 m, so that some hold min_points_in_box points
+# and round 1 mines tracks).
+M_FRAMES, M_PTS, M_CHUNK, M_SMOOTH_ITERS, M_DIMS_BIAS = 64, 65536, 8, 2000, 6.0
+# Round 0 on the card against the port on the CPU, on the first M_CPU_FRAMES
+# frames: the same tracks and ids; positions and yaw within the smoothing's
+# own spread (Adam at lr 0.1 on the jerk does not settle: the JAX function
+# moves by up to 0.068 m when its input moves by one ulp,
+# tests/test_torch_tracker.py), dims within M_DIMS_ATOL
+M_CPU_FRAMES, M_POS_ATOL, M_ROT_ATOL, M_DIMS_ATOL = 16, 0.1, 0.1, 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -1555,6 +1586,376 @@ def phase_slim_experiment(kernels):
     return kres, res
 
 
+class MiningTimers:
+    """Host-clock timings of the mining pass's stages, taken by wrapping
+    the functions mine_sequence calls (each wrapper awaits the card before
+    it reads the clock). Installed with `with`, restored on exit."""
+
+    def __init__(self, loop):
+        self.loop = loop
+        self.clear()
+
+    def clear(self):
+        self.detect, self.program, self.copy = [], [], []
+        self.tracker, self.refine, self.smooth = [], [], []
+
+    def _timed(self, out, fn):
+        import torch
+
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            return r
+        return wrapped
+
+    def __enter__(self):
+        from liso_tpu_torch.tracker import mining
+
+        loop = self.loop
+        self._saved = [
+            (mining, "_mine_frame_device"), (mining, "_frame_to_host"),
+            (mining, "refine_track_boxes"), (mining, "smooth_track_jerk"),
+            (mining.FlowBasedBoxTracker, "update"),
+            (mining.FlowBasedBoxTracker, "run_tracker"),
+        ]
+        self._saved = [(o, n, getattr(o, n)) for o, n in self._saved]
+        mining._mine_frame_device = self._timed(self.program, mining._mine_frame_device)
+        mining._frame_to_host = self._timed(self.copy, mining._frame_to_host)
+        mining.refine_track_boxes = self._timed(self.refine, mining.refine_track_boxes)
+        mining.smooth_track_jerk = self._timed(self.smooth, mining.smooth_track_jerk)
+        for name in ("update", "run_tracker"):
+            setattr(mining.FlowBasedBoxTracker, name,
+                    self._timed(self.tracker, getattr(mining.FlowBasedBoxTracker, name)))
+        fc = loop._bootstrap_detect_fn()
+        loop._fc_detect_cached = self._timed(self.detect, fc)
+        batch = loop._detector_detect_batch_fn
+        loop._detector_detect_batch_fn = lambda *a, **k: self._timed(
+            self.detect, batch(*a, **k))
+        self._loop_saved = (fc, batch)
+        return self
+
+    def __exit__(self, *exc):
+        for o, n, f in self._saved:
+            setattr(o, n, f)
+        self.loop._fc_detect_cached, batch = self._loop_saved
+        del self.loop._detector_detect_batch_fn
+        return False
+
+    def summary(self, n_frames, per_call_frames=1):
+        mean = lambda x: statistics.mean(x) if x else None
+        return {
+            "detect_ms_per_frame": sum(self.detect) / n_frames,
+            "detect_calls": len(self.detect),
+            "detect_ms_per_call_median": statistics.median(self.detect)
+            if self.detect else None,
+            "frame_program_ms_per_frame": (sum(self.program) + sum(self.copy))
+            / n_frames,
+            "frame_program_device_ms_median": statistics.median(self.program),
+            "frame_copy_ms_median": statistics.median(self.copy),
+            "tracker_host_ms": sum(self.tracker),
+            "refine_ms_per_track": mean(self.refine),
+            "smooth_ms_per_track": mean(self.smooth),
+            "tracks_refined": len(self.refine),
+            "tracks_smoothed": len(self.smooth),
+        }
+
+
+def tree_equal(a, b) -> list:
+    """Paths where two DB trees (dicts, lists, numpy arrays) differ: arrays
+    by dtype, shape and bits."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"keys {sorted(set(map(str, a)) ^ set(map(str, b)))}"]
+        return [f"{k}/{d}" for k in a for d in tree_equal(a[k], b[k])]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"len {len(a)} != {len(b)}"]
+        return [f"{i}/{d}" for i, (x, y) in enumerate(zip(a, b))
+                for d in tree_equal(x, y)]
+    a, b = np.asarray(a), np.asarray(b)
+    same = (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+    return [] if same else [""]
+
+
+def db_stats(mined):
+    """(tracks, boxes) of a mined DB."""
+    ids = {int(t) for v in mined.values() for t in v["track_id"]}
+    return len(ids), sum(len(v["track_id"]) for v in mined.values())
+
+
+def db_diff(got, want):
+    """Track ids per sample equal? And the largest box differences."""
+    import numpy as np
+
+    if set(got) != set(want):
+        return False, {}
+    same_ids = all(np.array_equal(got[k]["track_id"], want[k]["track_id"])
+                   for k in want)
+    diff = {"pos": 0.0, "rot": 0.0, "dims": 0.0}
+    if same_ids:
+        for k in want:
+            g, w = got[k]["raw_box"], want[k]["raw_box"]
+            if not len(w.get("pos", ())):
+                continue
+            diff["pos"] = max(diff["pos"], float(np.abs(g["pos"] - w["pos"]).max()))
+            d = np.abs(np.angle(np.exp(1j * (g["rot"] - w["rot"]))))
+            diff["rot"] = max(diff["rot"], float(d.max()))
+            diff["dims"] = max(diff["dims"], float(np.abs(g["dims"] - w["dims"]).max()))
+    return same_ids, diff
+
+
+class PlainDetector:
+    """A trainer's predict_step through the kernels' plain versions."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+
+    def predict_step(self, points, valid):
+        return self.trainer.predict_step(points, valid, plain=True)
+
+
+def smoothing_on_one_track():
+    """smooth_track_jerk on one 64-frame track, 2000 iterations, eager
+    against its CUDA graph (bitwise), and the bike model on one 16-frame
+    track, 2000 iterations (its CUDA graph)."""
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.tracker import smoothing
+
+    rng = np.random.RandomState(0)
+    t = np.arange(M_FRAMES)
+    pos = np.stack([1.5 * t + 0.2 * np.sin(t), 0.4 * t, np.full(M_FRAMES, -0.8)],
+                   -1) + 0.15 * rng.randn(M_FRAMES, 3)
+    pos = torch.tensor(pos[None], dtype=torch.float32, device="cuda")
+    yaw = torch.full((1, M_FRAMES, 1), 0.26, device="cuda")
+    valid = torch.ones(1, M_FRAMES, dtype=torch.bool, device="cuda")
+    out, ms = {}, {}
+    for graph in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = smoothing.smooth_track_jerk(pos, valid, yaw, max_iters=M_SMOOTH_ITERS,
+                                        graph=graph)
+        torch.cuda.synchronize()
+        ms.setdefault(graph, []).append((time.perf_counter() - t0) * 1e3)
+        if graph in out and not all(torch.equal(a, b) for a, b in zip(r, out[graph])):
+            fail(f"smooth_track_jerk (graph={graph}) differs between two calls")
+        out[graph] = r
+    if not all(torch.equal(a, b) for a, b in zip(out[False], out[True])):
+        fail("smooth_track_jerk: the CUDA graph's result differs from the "
+             "eager loop's")
+    bpos, byaw, bvalid = pos[:, :16], yaw[:, :16], valid[:, :16]
+    vlen = torch.tensor([4.0], device="cuda")
+    bike_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = smoothing.smooth_track_bike_model(bpos, bvalid, byaw, vlen,
+                                              max_iters=M_SMOOTH_ITERS)
+        torch.cuda.synchronize()
+        bike_ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(bool(torch.isfinite(x).all()) for x in b):
+        fail("smooth_track_bike_model: not finite")
+    return {"jerk_track_frames": M_FRAMES, "iters": M_SMOOTH_ITERS,
+            "jerk_eager_ms": ms[False], "jerk_graph_ms": ms[True],
+            "graph_equals_eager": True,
+            "bike_track_frames": 16, "bike_graph_ms": bike_ms}
+
+
+def phase_mining(kernels):
+    """LisoSelfTraining.mine at full width, rounds 0 and 1."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.cli.common import DEFAULT_CFG
+    from liso_tpu_torch.cli.slim_cli import build_datasets
+    from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
+    from liso_tpu_torch.tracker.dbs import finalize_augm_db, load_mined_boxes_db
+    from liso_tpu_torch.train import liso_loop
+    from liso_tpu_torch.utils.config import parse_config
+
+    t_phase = time.perf_counter()
+    cfg = parse_config(DEFAULT_CFG, ["bev_100m_512", "centerpoint", "liso"])
+    train_ds, _, bev = build_datasets(cfg, False, target="object")
+    tc = cfg.data.tracking_cfg
+    got_cfg = (bev.grid_size, bev.bev_range_m, train_ds.cfg.n_max, len(train_ds),
+               int(tc.max_num_boxes_after_nms), int(tc.min_track_age))
+    if got_cfg != ((D_GRID, D_GRID), (D_RANGE, D_RANGE), M_PTS, M_FRAMES, 100, 4):
+        fail(f"bev_100m_512 centerpoint liso gave {got_cfg}")
+    zero = {k: 0 for k in kernels.launches}
+    tmp = tempfile.TemporaryDirectory(prefix="mining_", dir=OUT_DIR)
+    try:
+        run_dir = Path(tmp.name) / "run"
+        loop = liso_loop.LisoSelfTraining(cfg, lambda db: train_ds, None, run_dir,
+                                          data_cfg=train_ds.cfg, device="cuda")
+        for mc in (loop.mining_cfg_bootstrap, loop.mining_cfg_detector):
+            if mc.smoothing_iters != M_SMOOTH_ITERS:
+                fail(f"mining smoothing_iters {mc.smoothing_iters}")
+        frames = liso_loop.frames_from_dataset(train_ds, list(range(M_FRAMES)))
+        res = {"phase": "mining",
+               "configs": "bev_100m_512 centerpoint liso (mining_cli)",
+               "grid": D_GRID, "range_m": D_RANGE, "n_max": M_PTS,
+               "frames": M_FRAMES, "k_after_nms": 100, "min_track_age": 4,
+               "smoothing_iters": M_SMOOTH_ITERS, "detector_chunk": M_CHUNK,
+               "points_per_frame": [int(frames[0].valid.sum()),
+                                    int(frames[-1].valid.sum())],
+               "round1_detector": f"random weights (seed 0), dims head bias "
+                                  f"+{M_DIMS_BIAS}"}
+
+        # round 0: the flow-cluster bootstrap (no kernel on its path)
+        with MiningTimers(loop) as tm:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            loop.mine(train_ds)
+            torch.cuda.synchronize()
+            r0_s = time.perf_counter() - t0
+            r0_launches = dict(kernels.launches)
+        if r0_launches != zero:
+            fail(f"round 0 launched kernels: {r0_launches}")
+        out0 = run_dir / "mined_round_0"
+        mined0 = load_mined_boxes_db(out0 / "tracked.npz")
+        augm0 = np.load(out0 / "augm_db.npy", allow_pickle=True).item()
+        diff = (tree_equal(mined0, loop.mined_db)
+                + tree_equal(augm0, finalize_augm_db(loop.augm_db)))
+        if diff:
+            fail(f"round 0 DBs loaded back differ at {diff[:8]}")
+        n_tracks0, n_boxes0 = db_stats(loop.mined_db)
+        if n_tracks0 < 1:
+            fail("round 0 mined no track")
+        r0 = {"seconds": r0_s, "launches": r0_launches, "tracks": n_tracks0,
+              "boxes": n_boxes0, "snippets": len(loop.augm_db["boxes"]),
+              "db_bytes": {"tracked.npz": (out0 / "tracked.npz").stat().st_size,
+                           "augm_db.npy": (out0 / "augm_db.npy").stat().st_size},
+              **tm.summary(M_FRAMES)}
+        detect_host_ms = sum(tm.detect)
+        fc = loop._bootstrap_detect_fn()
+        _, dev_ms, rows, _ = profile_window(lambda: [fc(f) for f in frames])
+        r0["detect_stage"] = {"host_ms": detect_host_ms, "device_ms": dev_ms,
+                              "device_busy_share": dev_ms / detect_host_ms,
+                              "device_ms_by_family": families(rows)}
+        res["round0"] = r0
+
+        # round 0 on the first frames: the card against the port on the CPU
+        ds16 = copy.copy(train_ds)
+        ds16.get_consecutive_sample_idxs_for_sequence = (
+            lambda seq_of_idx=0: list(range(M_CPU_FRAMES)))
+        dbs16 = {}
+        for dev in ("cuda", "cpu"):
+            lp = liso_loop.LisoSelfTraining(cfg, lambda db: ds16, None,
+                                            Path(tmp.name) / dev,
+                                            data_cfg=train_ds.cfg, device=dev)
+            t0 = time.perf_counter()
+            lp.mine(ds16)
+            dbs16[dev] = (lp.mined_db, time.perf_counter() - t0)
+        same_ids, d16 = db_diff(dbs16["cuda"][0], dbs16["cpu"][0])
+        n16 = db_stats(dbs16["cpu"][0])
+        res["round0_card_vs_cpu"] = {
+            "frames": M_CPU_FRAMES, "same_track_ids": same_ids,
+            "tracks_boxes": n16, "max_abs_diff": d16,
+            "tolerance": {"pos_m": M_POS_ATOL, "rot_rad": M_ROT_ATOL,
+                          "dims_m": M_DIMS_ATOL},
+            "cuda_s": dbs16["cuda"][1], "cpu_s": dbs16["cpu"][1]}
+        if (not same_ids or n16[0] < 1 or d16["pos"] > M_POS_ATOL
+                or d16["rot"] > M_ROT_ATOL or d16["dims"] > M_DIMS_ATOL):
+            fail(f"round 0 on the card vs the CPU: same ids {same_ids}, "
+                 f"tracks/boxes {n16}, max diff {d16}")
+
+        # round 1: the detector in chunks of 8 frames
+        det = loop.trainer
+        with torch.no_grad():
+            det.params["model.sep_head.dims_final.bias"] += M_DIMS_BIAS
+        loop.state, loop.round_idx = det, 1
+        padded = [liso_loop._pad_frame_points(f, M_PTS) for f in frames[:M_CHUNK]]
+        pts = torch.as_tensor(np.stack([p for p, _ in padded]), device="cuda")
+        valid = torch.as_tensor(np.stack([v for _, v in padded]), device="cuda")
+        cells = prepare_pillar_inputs(pts, valid, bev).cell
+        kres = [check_scatter_max(torch.Generator(device="cuda").manual_seed(11),
+                                  cells, bev.num_cells, 64, torch.float32)]
+        # kernels against plain under cuDNN's deterministic algorithms, so
+        # that the two differ only where K1 could
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            with MiningTimers(loop) as tm:
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                loop.mine(train_ds)
+                torch.cuda.synchronize()
+                r1_s = time.perf_counter() - t0
+                r1_launches = dict(kernels.launches)
+            n_chunks = -(-M_FRAMES // M_CHUNK)
+            if r1_launches != {**zero, "grid_scatter_max_occ": n_chunks}:
+                fail(f"round 1 launches {r1_launches}, expected one K1 per "
+                     f"chunk of {M_CHUNK} frames ({n_chunks})")
+            mined1 = loop.mined_db
+            out1 = run_dir / "mined_round_1"
+            diff = (tree_equal(load_mined_boxes_db(out1 / "tracked.npz"), mined1)
+                    + tree_equal(np.load(out1 / "augm_db.npy", allow_pickle=True).item(),
+                                 finalize_augm_db(loop.augm_db)))
+            if diff:
+                fail(f"round 1 DBs loaded back differ at {diff[:8]}")
+            n_tracks1, n_boxes1 = db_stats(mined1)
+            r1 = {"seconds": r1_s, "launches": r1_launches, "tracks": n_tracks1,
+                  "boxes": n_boxes1, "snippets": len(loop.augm_db["boxes"]),
+                  "db_bytes": {"tracked.npz": (out1 / "tracked.npz").stat().st_size,
+                               "augm_db.npy": (out1 / "augm_db.npy").stat().st_size},
+                  **tm.summary(M_FRAMES)}
+            detect_host_ms = sum(tm.detect)
+            detect_many = loop._detector_detect_batch_fn()
+            counts, dev_ms, rows, _ = profile_window(lambda: detect_many(frames))
+            r1["detect_stage"] = {
+                "host_ms": detect_host_ms, "device_ms": dev_ms,
+                "device_busy_share": dev_ms / detect_host_ms,
+                "launches_profiled": counts,
+                "device_ms_by_family": families(rows)}
+            confirm_launches(lambda: det.predict_step(pts, valid),
+                             {**zero, "grid_scatter_max_occ": 1},
+                             "a mining predict_step at batch 8")
+            # the same round through the plain versions
+            boxes_k = detect_many(frames)
+            loop.state = PlainDetector(det)
+            kernels.reset_launches()
+            boxes_p = loop._detector_detect_batch_fn()(frames)
+            loop.mine(train_ds)
+            torch.cuda.synchronize()
+            if any(kernels.launches.values()):
+                fail(f"the plain round 1 launched kernels: {dict(kernels.launches)}")
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        box_diff = max(float((getattr(a, f) - getattr(b, f)).abs().max())
+                       for a, b in zip(boxes_k, boxes_p)
+                       for f in ("pos", "dims", "rot", "probs"))
+        same_valid = all(torch.equal(a.valid, b.valid)
+                         for a, b in zip(boxes_k, boxes_p))
+        same_ids, d1 = db_diff(mined1, loop.mined_db)
+        r1["kernel_vs_plain"] = {"detections_same_valid": same_valid,
+                                 "detections_max_abs_diff": box_diff,
+                                 "same_track_ids": same_ids,
+                                 "mined_max_abs_diff": d1,
+                                 "tolerance": DET_BOX_ATOL,
+                                 "kept_per_frame": [int(b.valid.sum())
+                                                    for b in boxes_k[:M_CHUNK]]}
+        if (not same_valid or box_diff > DET_BOX_ATOL or not same_ids
+                or max(d1.values()) > DET_BOX_ATOL):
+            fail(f"round 1, kernels vs plain: {r1['kernel_vs_plain']}")
+        res["round1"] = r1
+        res["smoothing_one_track"] = smoothing_on_one_track()
+    finally:
+        tmp.cleanup()
+    res["phase_s"] = time.perf_counter() - t_phase
+    return kres, res
+
+
 def run_path(serve, slim, det, frames, valid, plain=False):
     """fused_forward, then encode + chained fused_streaming steps."""
     import torch
@@ -1773,6 +2174,12 @@ def main() -> int:
     for r in ekres:
         emit({"phase": "kernel", "path": "slim_experiment", **r})
         by_name[r["name"]]["slim_experiment_shape"] = shape_entry(r)
+    torch.cuda.empty_cache()
+    mkres, mining = phase_mining(kernels)
+    emit({**mining, "nvidia_smi": smi})
+    for r in mkres:
+        emit({"phase": "kernel", "path": "mine", **r})
+        by_name[r["name"]]["mine_shape"] = shape_entry(r)
     for r in kres:
         name = r["name"]
         r["launches_by_path"] = {
@@ -1780,7 +2187,9 @@ def main() -> int:
             "detect_train": detect["launches"][name],
             "slim_experiment": (experiment["launches"][name]
                                 + experiment["eval_launches"][name]
-                                + experiment["export_launches"][name])}
+                                + experiment["export_launches"][name]),
+            "mine": (mining["round0"]["launches"][name]
+                     + mining["round1"]["launches"][name])}
         r["launches"] = sum(r["launches_by_path"].values())
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump({"device": device, "nvidia_smi": smi, "kernels": kres,
@@ -1788,6 +2197,7 @@ def main() -> int:
                    "train": train, "detect_train": detect,
                    "slim_experiment_kernels": ekres,
                    "slim_experiment": experiment,
+                   "mining_kernels": mkres, "mining": mining,
                    "ptxas": ptxas,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     with open(OUT_DIR / "chip_smoke_profile.txt", "w") as f:
@@ -1827,13 +2237,14 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "kernel_only_ms", "host_ms",
             "library_ms_prezeroed", "train_shape", "detect_train_shape",
-            "slim_experiment_shape",
+            "slim_experiment_shape", "mine_shape",
             "second_shape", "decoder_shape", "host_steps_ms",
             "skewed_layout", "slim_step_layout", "serving_step_layout",
             "needed_pairs", "visited_pairs", "visited_over_needed",
             "band_bound_ms", "band_agreement")
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
-          "slim_experiment_s": experiment["phase_s"], "nvidia_smi": smi})
+          "slim_experiment_s": experiment["phase_s"],
+          "mining_s": mining["phase_s"], "nvidia_smi": smi})
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -47,13 +47,17 @@ def render_gaussian_heatmaps(boxes: Boxes,
 
 def render_centermaps(
     boxes: Boxes, bev: BevSetup, grid_hw: Tuple[int, int],
-    cfg: BoxPredictionCfg,
+    cfg: BoxPredictionCfg, per_obj_prob_scale: torch.Tensor = None,
 ) -> Dict[str, torch.Tensor]:
     """Target maps for the centerpoint loss, [B, h, w, C] each, plus
-    center_bool_mask [B, h, w] (cells holding a valid box center)."""
+    center_bool_mask [B, h, w] (cells holding a valid box center).
+    per_obj_prob_scale [B, K, 1] (shaped as boxes.probs), when given,
+    scales each box's heat."""
     dev = boxes.pos.device
     centers = torch.from_numpy(prediction_grid_centers(bev, grid_hw)).to(dev)
     heat = render_gaussian_heatmaps(boxes, centers)  # [B, K, h, w]
+    if per_obj_prob_scale is not None:
+        heat = heat * per_obj_prob_scale[..., None]
     occ = (heat > OCCUPANCY_THRESH).float()
     hottest = (heat == heat.amax(dim=1, keepdim=True)).float()
     pick = occ * hottest  # [B, K, h, w]

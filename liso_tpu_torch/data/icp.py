@@ -2,28 +2,53 @@
 
 Behavioral reference: the reference consumes kiss-icp (external C++ pybind,
 datasets/kitti/create_kitti_raw.py:39-177) for training-path-independent
-offline odometry. Here the same role is filled by native/icp.cpp (voxel-hash
-point-to-point ICP, loaded via ctypes) with a scipy-cKDTree fallback —
-constant-velocity initialisation, voxel downsampling, and scan-to-local-map
-registration like KISS-ICP's core loop.
+offline odometry. Here the same role is filled by the port's copy of
+native/icp.cpp (liso_tpu_torch/native/icp.cpp: voxel-hash point-to-point
+ICP, built with g++ at first use into liso_tpu_torch/native/_build/ and
+loaded via ctypes), with a scipy-cKDTree path where no C++ compiler is
+found — constant-velocity initialisation, voxel downsampling, and
+scan-to-local-map registration like KISS-ICP's core loop.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
 from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
+NATIVE_SRC = Path(__file__).resolve().parent.parent / "native" / "icp.cpp"
+CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 _LIB = None
+
+
+def _build_native():
+    """The shared library of NATIVE_SRC, built with g++ when missing (its
+    name holds a hash of the source and the flags); None without g++."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        return None
+    h = hashlib.sha256(NATIVE_SRC.read_bytes() + " ".join(CXX_FLAGS).encode())
+    so = NATIVE_SRC.parent / "_build" / f"libliso_native-{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        so.parent.mkdir(exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(NATIVE_SRC)],
+                       check=True, capture_output=True, timeout=300)
+        os.replace(tmp, so)  # atomic: concurrent builds race harmlessly
+    return so
 
 
 def _load_native():
     global _LIB
     if _LIB is not None:
         return _LIB
-    so = Path(__file__).parent.parent.parent / "native" / "libliso_native.so"
-    if not so.exists():
+    so = _build_native()
+    if so is None:
         _LIB = False
         return False
     lib = ctypes.CDLL(str(so))

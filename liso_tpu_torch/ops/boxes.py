@@ -1,6 +1,4 @@
-"""Fixed-capacity 3D box container (port of liso_tpu/ops/boxes.py: the
-fields and the methods that detector training and NMS use; the pose and
-point-membership methods come with mining).
+"""Fixed-capacity 3D box container (port of liso_tpu/ops/boxes.py).
 
   * pos  [..., K, 3]  box center
   * dims [..., K, 3]  (length_x, width_y, height_z)
@@ -19,7 +17,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
+
+from liso_tpu_torch.ops import transforms as tr
 
 UNKNOWN_CLASS_ID = torch.iinfo(torch.int32).max
 INVALID_CLASS_ID = UNKNOWN_CLASS_ID - 1
@@ -78,6 +79,37 @@ class Boxes:
     def k(self) -> int:
         return self.valid.shape[-1]
 
+    @property
+    def batch_shape(self):
+        return self.valid.shape[:-1]
+
+    def poses(self) -> torch.Tensor:
+        """[..., K, 4, 4] sensor_T_box."""
+        return tr.compose_matrix(t=self.pos, theta_z=self.rot[..., 0])
+
+    def transform(self, new_T_old: torch.Tensor) -> "Boxes":
+        """Move the boxes to a new frame; new_T_old [..., 4, 4] is broadcast
+        over K."""
+        pos, yaw = tr.decompose_matrix(new_T_old[..., None, :, :] @ self.poses())
+        return self.replace(pos=pos, rot=yaw[..., None])
+
+    def points_in_box_mask(self, pcl: torch.Tensor, bloat: float = 1.0,
+                           return_box_coords: bool = False):
+        """[..., N, 3] points -> [..., N, K] bool membership; invalid boxes
+        hold no point. With return_box_coords also the points in every
+        box's frame [..., N, K, 3]."""
+        box_T_sensor = tr.invert_pose(self.poses())  # [..., K, 4, 4]
+        R = box_T_sensor[..., :3, :3]
+        t = box_T_sensor[..., :3, 3]
+        p_box = (torch.einsum("...kij,...nj->...nki", R, pcl[..., :3])
+                 + t[..., None, :, :])
+        inside = torch.all(
+            p_box.abs() < 0.5 * bloat * self.dims[..., None, :, :], dim=-1)
+        inside = inside & self.valid[..., None, :]
+        if return_box_coords:
+            return inside, p_box
+        return inside
+
     def bev_corners(self) -> torch.Tensor:
         """[..., K, 4, 2] BEV footprint corners (ccw in box frame)."""
         lx = self.dims[..., 0] * 0.5
@@ -88,6 +120,15 @@ class Boxes:
         x = c[..., None] * cx - s[..., None] * cy + self.pos[..., 0:1]
         y = s[..., None] * cx + c[..., None] * cy + self.pos[..., 1:2]
         return torch.stack([x, y], dim=-1)
+
+    def corners(self) -> torch.Tensor:
+        """[..., K, 8, 3] 3D corners (bottom 4 then top 4)."""
+        bev = self.bev_corners()  # [..., K, 4, 2]
+        z_lo = self.pos[..., 2:3] - 0.5 * self.dims[..., 2:3]
+        z_hi = self.pos[..., 2:3] + 0.5 * self.dims[..., 2:3]
+        lo = torch.cat([bev, z_lo[..., None, :].expand(*bev.shape[:-1], 1)], -1)
+        hi = torch.cat([bev, z_hi[..., None, :].expand(*bev.shape[:-1], 1)], -1)
+        return torch.cat([lo, hi], dim=-2)
 
     def mask_invalid(self) -> "Boxes":
         """Zero the attributes of invalid slots (class ids become
@@ -142,3 +183,18 @@ class Boxes:
             return torch.nn.functional.pad(x, (0, 0, 0, k - a.k))
 
         return Boxes(**{f: pad(getattr(a, f), f) for f in _FIELDS})
+
+
+def boxes_from_numpy(d: dict, device=None) -> Boxes:
+    """Boxes from a dict of numpy arrays (the mined-DB and dataset
+    format)."""
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return Boxes(
+        pos=f32(d["pos"]), dims=f32(d["dims"]), rot=f32(d["rot"]),
+        probs=f32(d["probs"]),
+        velo=f32(d["velo"]) if d.get("velo") is not None else None,
+        valid=torch.as_tensor(np.asarray(d["valid"], bool), device=device),
+        class_id=torch.as_tensor(np.asarray(d["class_id"], np.int32),
+                                 device=device)
+        if d.get("class_id") is not None else None,
+    ).with_defaults()

@@ -1,0 +1,512 @@
+"""LISO self-training rounds, the mining half (port of the mining parts of
+liso_tpu/train/liso_loop.py).
+
+Behavioral reference: liso/kabsch/liso_cli.py:58-723. In every round the
+current detector re-mines the box DB and the augmentation DB over whole
+drive sequences: round 0 with the flow-cluster bootstrap, later rounds
+with the trained detector. `LisoSelfTraining.mine(dataset)` is that pass.
+The rest of the rounds loop (`run`, `validate`, `save`, `restore`, the
+batch assembly) comes with ROADMAP section A item 3 and raises
+NotImplementedError until then.
+
+The detector and every device program run on the card unless the caller
+passes `device="cpu"`; without CUDA the constructor raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+import yaml
+
+from liso_tpu_torch.data.dataset import DataCfg, LidarDataset, pad_to
+from liso_tpu_torch.models.box_decode import BoxPredictionCfg
+from liso_tpu_torch.models.flow_cluster_detector import (
+    FlowClusterCfg,
+    detect_boxes_from_flow,
+)
+from liso_tpu_torch.ops.bev import point_cell_ids
+from liso_tpu_torch.ops.boxes import Boxes
+from liso_tpu_torch.serve import resolve_device
+from liso_tpu_torch.tracker.dbs import (
+    empty_augm_db,
+    load_mined_boxes_db,
+    merge_finalized_augm_dbs,
+    save_augm_db,
+    save_mined_boxes_db,
+    shrink_augm_db,
+)
+from liso_tpu_torch.tracker.mining import (
+    Frame,
+    MiningCfg,
+    mine_sequence,
+    union_proposals,
+)
+from liso_tpu_torch.train.detector_train import DetectorTrainer
+from liso_tpu_torch.utils.tb import TBFactory
+
+ITEM_3 = "ROADMAP section A item 3 (the rounds loop) is not ported yet"
+
+
+def frames_from_dataset(dataset: LidarDataset, idxs: List[int]) -> List[Frame]:
+    """The mining frames of `idxs`: always the consecutive pair t0 -> t1
+    and no augmentation (the dataset's is switched off meanwhile), every
+    cloud padded to n_max."""
+    frames = []
+    saved_augm = dataset.augmentation
+    dataset.augmentation = None
+    n_max = int(dataset.cfg.n_max)
+    try:
+        for i in idxs:
+            s = dataset.get_pair(i, "t0", "t1")
+            v = s.frame_t0.valid
+            pcl, pvalid = pad_to(s.frame_t0.pcl[v], n_max)
+            flow, _ = pad_to(s.flow_t0_t1[v], n_max)
+            rows, _ = pad_to(s.frame_t0.rows[v], n_max)
+            frames.append(
+                Frame(
+                    sample_id=s.sample_id,
+                    pcl=pcl,
+                    valid=pvalid,
+                    flow=flow,
+                    odom_ta_tb=np.asarray(s.odom_t0_t1, np.float64),
+                    lidar_rows=rows,
+                )
+            )
+    finally:
+        dataset.augmentation = saved_augm
+    return frames
+
+
+def _pad_frame_points(frame: Frame, n_max: int):
+    """Pad a mining Frame's cloud to n_max, keeping its own validity mask
+    (padding rows stay invalid; hand-built Frames may be compact)."""
+    pts, fresh = pad_to(frame.pcl, n_max)
+    vals, _ = pad_to(frame.valid, n_max)
+    return pts, vals.astype(bool) & fresh
+
+
+def _to_plain(cfg_node):
+    """Config tree -> plain dict for yaml dumps."""
+    if hasattr(cfg_node, "items"):
+        return {k: _to_plain(v) for k, v in cfg_node.items()}
+    if isinstance(cfg_node, (list, tuple)):
+        return [_to_plain(v) for v in cfg_node]
+    return cfg_node
+
+
+def merge_mined_dbs(dbs: List[Dict[str, dict]]) -> Dict[str, dict]:
+    """Merge per-worker mined DBs (sequences are disjoint, so keys never
+    collide)."""
+    out: Dict[str, dict] = {}
+    for db in dbs:
+        out.update(db)
+    return out
+
+
+class LisoSelfTraining:
+    def __init__(
+        self,
+        cfg,  # Config tree (liso_config.yml semantics)
+        train_dataset_factory: Callable[[Optional[dict]], LidarDataset],
+        val_dataset: Optional[LidarDataset],
+        log_dir,
+        data_cfg: DataCfg,
+        world_size: int = 1,
+        worker_id: int = 0,
+        device=None,
+    ):
+        """world_size/worker_id > (1, 0): mining shards the sequences by
+        `seq_idx % world_size == worker_id` and the workers' DBs are merged
+        through the shared log_dir."""
+        assert 0 <= worker_id < world_size, (worker_id, world_size)
+        self.device = resolve_device(device)
+        self.world_size = int(world_size)
+        self.worker_id = int(worker_id)
+        self.cfg = cfg
+        self.data_cfg = data_cfg
+        self.bev = data_cfg.bev
+        self.train_dataset_factory = train_dataset_factory
+        self.val_dataset = val_dataset
+        self.log_dir = Path(log_dir)
+        self.tb = TBFactory(self.log_dir / "tb")
+        self.tb("train").add_text(
+            "config", "```\n" + yaml.safe_dump(_to_plain(cfg)) + "\n```", 0)
+
+        tc = cfg.data.tracking_cfg
+        self.mining_cfg_bootstrap = MiningCfg(
+            min_track_age=int(tc.min_track_age),
+            track_confidence_threshold=float(
+                cfg.optimization.rounds.confidence_threshold_mined_boxes
+            ),
+            min_points_in_box=int(tc.min_points_in_box),
+            box_matching_threshold_m=float(tc.track_matching_threshold_m),
+            min_track_obj_speed_mps=float(
+                tc.flow_cluster_detector_min_obj_speed_mps
+            ),
+            flow_cluster_min_travel_dist_m=float(
+                tc.flow_cluster_detector_min_travel_dist_filter_m
+            ),
+            is_flow_cluster_detector=True,
+            dims_quantile=0.95,
+            fit_rot=bool(tc.fit_box_to_points.fit_rot),
+            fit_pos=bool(tc.fit_box_to_points.fit_pos),
+        )
+        self.mining_cfg_detector = self.mining_cfg_bootstrap._replace(
+            is_flow_cluster_detector=False,
+            align_yaw_with_motion=bool(tc.align_predicted_boxes_using_flow),
+            dims_quantile=0.6,
+        )
+
+        bp = cfg.box_prediction
+        self.box_cfg = BoxPredictionCfg(
+            position_method=bp.position_representation.method,
+            num_box_pos_dims=int(bp.position_representation.num_box_pos_dims),
+            box_z_pos_prior_min=float(bp.position_representation.box_z_pos_prior_min),
+            box_z_pos_prior_max=float(bp.position_representation.box_z_pos_prior_max),
+            dimensions_method=bp.dimensions_representation.method,
+            box_len_prior_min=float(bp.dimensions_representation.box_len_prior_min),
+            box_len_prior_max=float(bp.dimensions_representation.box_len_prior_max),
+            rotation_method=bp.rotation_representation.method,
+            activations=dict(bp.activations),
+        )
+        self.trainer = self._make_trainer()
+        # the detector to mine with in rounds >= 1: a DetectorTrainer that
+        # holds its train state (in JAX the train state itself); None until
+        # the rounds loop trains one or the caller loads one into `trainer`
+        self.state: Optional[DetectorTrainer] = None
+        self.round_idx = 0
+        self.mined_db: Optional[dict] = None
+        self.augm_db: Optional[dict] = None
+        self._augm_db_final: Optional[dict] = None
+        self.rng = np.random.RandomState(int(cfg.seed))
+
+    def _make_trainer(self) -> DetectorTrainer:
+        """The baseline CenterPoint's trainer. OneCycle spans the whole
+        reset period, steps_per_round x drop_net_weights_every_nth_round
+        (+2), as in the reference (liso_cli.py:806-820)."""
+        opt = self.cfg.optimization
+        if opt.rounds.active:
+            drop = max(int(opt.rounds.drop_net_weights_every_nth_round), 1)
+            steps = int(opt.rounds.steps_per_round) * drop + 2
+        else:
+            steps = int(opt.num_training_steps) + 2
+        if self.cfg.network.name in ("pointpillars", "pointrcnn"):
+            raise NotImplementedError(
+                f"network {self.cfg.network.name!r}: ROADMAP section A item 4 "
+                "(other detectors) is not ported yet")
+        if not bool(self.cfg.network.centerpoint.use_baseline_parameters):
+            raise NotImplementedError(
+                f"use_baseline_parameters=False: {ITEM_3}")
+        return DetectorTrainer(
+            self.bev,
+            network=self.cfg.network.name,
+            box_cfg=self.box_cfg,
+            max_lr=float(opt.learning_rate),
+            total_steps=steps,
+            nms_iou_threshold=float(self.cfg.nms_iou_threshold),
+            post_max_boxes=int(
+                self.cfg.data.tracking_cfg.max_num_boxes_after_nms
+            ),
+            confidence_threshold=float(
+                opt.rounds.confidence_threshold_mined_boxes
+            ),
+            device=self.device,
+        )
+
+    # ------------------------------------------------------------------
+    def _bootstrap_detect_fn(self):
+        """Frame -> the flow-cluster boxes (k = max_num_boxes_after_nms) on
+        the device; cached, since union mining asks for it every round."""
+        cached = getattr(self, "_fc_detect_cached", None)
+        if cached is not None:
+            return cached
+        bev, dev = self.bev, self.device
+        fc_cfg = FlowClusterCfg(
+            min_residual_flow_thresh_mps=1.0,
+            k_max=int(self.cfg.data.tracking_cfg.max_num_boxes_after_nms),
+        )
+        td = float(self.data_cfg.time_delta_s)
+
+        def detect(frame: Frame) -> Boxes:
+            pcl = torch.as_tensor(frame.pcl, device=dev)
+            valid = torch.as_tensor(frame.valid, device=dev)
+            cell, _, _ = point_cell_ids(pcl[:, :2], bev, valid)
+            return detect_boxes_from_flow(
+                pcl, valid, cell, torch.as_tensor(frame.flow, device=dev),
+                torch.as_tensor(frame.odom_ta_tb, dtype=torch.float32,
+                                device=dev),
+                pcl, valid, td, bev, fc_cfg,
+            )
+
+        self._fc_detect_cached = detect
+        return detect
+
+    def _detector_detect_fn(self):
+        """Frame -> the detector's boxes, one frame per predict_step."""
+        det, n_max, dev = self.state, self.data_cfg.n_max, self.device
+
+        def detect(frame: Frame) -> Boxes:
+            pts, valid = _pad_frame_points(frame, n_max)
+            boxes = det.predict_step(torch.as_tensor(pts, device=dev)[None],
+                                     torch.as_tensor(valid, device=dev)[None])
+            return _sample(boxes, 0)
+
+        return detect
+
+    def _detector_detect_batch_fn(self, batch_size: int = 8):
+        """Frames -> the detector's boxes, `batch_size` frames per
+        predict_step (the last chunk repeats its final frame, so every call
+        has one shape). The boxes stay on the device."""
+        det, n_max, dev = self.state, self.data_cfg.n_max, self.device
+
+        def detect_many(frames) -> list:
+            out = []
+            for i in range(0, len(frames), batch_size):
+                chunk = frames[i : i + batch_size]
+                n_real = len(chunk)
+                while len(chunk) < batch_size:
+                    chunk = list(chunk) + [chunk[-1]]
+                padded = [_pad_frame_points(f, n_max) for f in chunk]
+                pts = torch.as_tensor(np.stack([p for p, _ in padded]), device=dev)
+                valid = torch.as_tensor(np.stack([v for _, v in padded]),
+                                        device=dev)
+                boxes = det.predict_step(pts, valid)
+                out.extend(_sample(boxes, j) for j in range(n_real))
+            return out
+
+        return detect_many
+
+    # ------------------------------------------------------------------
+    def mine(self, dataset: LidarDataset, world_size: Optional[int] = None,
+             worker_id: Optional[int] = None, gather: bool = True) -> None:
+        """The mining pass of one round (liso_cli.py:180-272): round 0 with
+        the flow-cluster bootstrap, later rounds with the detector in
+        `state`. Sequences are independent: with world_size > 1 each worker
+        mines `seq_idx % world_size == worker_id`, saves its DBs under the
+        shared log_dir and, with gather=True, waits for every worker's
+        marker file and merges the DBs; gather=False publishes this
+        worker's shard only. Sets mined_db and augm_db and writes them to
+        log_dir/mined_round_<round>/."""
+        world_size = self.world_size if world_size is None else world_size
+        worker_id = self.worker_id if worker_id is None else worker_id
+        t0 = time.time()
+        bootstrap = self.round_idx == 0 or self.state is None
+        detect_fn = (
+            self._bootstrap_detect_fn()
+            if bootstrap
+            else self._detector_detect_fn()
+        )
+        detect_batch_fn = None if bootstrap else self._detector_detect_batch_fn()
+        mcfg = (
+            self.mining_cfg_bootstrap
+            if self.round_idx == 0
+            else self.mining_cfg_detector
+        )
+        union_on = bool(
+            getattr(self.cfg.optimization.rounds, "mine_proposal_union", False)
+        )
+        if not bootstrap and union_on:
+            # flow-cluster proposals unioned into detector-mode mining
+            # (tracker/mining.union_proposals)
+            fc_detect = self._bootstrap_detect_fn()
+            det_detect = detect_fn
+            det_batch = detect_batch_fn
+            thresh = float(self.cfg.data.tracking_cfg.track_matching_threshold_m)
+
+            def detect_fn(frame):  # noqa: F811 — deliberate rebind
+                return union_proposals(det_detect(frame), fc_detect(frame),
+                                       thresh)
+
+            def detect_batch_fn(frames):  # noqa: F811
+                return [union_proposals(p, fc_detect(f), thresh)
+                        for p, f in zip(det_batch(frames), frames)]
+
+        # the reference's stop conditions (tracking.py:594): enough tracks
+        # or the timeout; both unset => every sequence
+        tc = self.cfg.data.tracking_cfg
+        min_num_boxes = getattr(tc, "min_num_boxes", None)
+        min_num_boxes = (
+            float("inf") if min_num_boxes in (None, "None") else int(min_num_boxes)
+        )
+        timeout_s = getattr(tc, "timeout_s", None)
+        timeout_at = (
+            t0 + float(timeout_s) if timeout_s not in (None, "None")
+            else float("inf")
+        )
+        mined: Dict[str, dict] = {}
+        augm = None
+        n_seqs = 0
+        num_successful_tracks = 0
+        sequences = [
+            s for i, s in enumerate(self._sequences(dataset))
+            if i % world_size == worker_id
+        ]
+        for seq in sequences:
+            if num_successful_tracks >= min_num_boxes:
+                print(f"mining: reached min_num_boxes={min_num_boxes} after "
+                      f"{n_seqs} sequences — stopping early")
+                break
+            if time.time() > timeout_at:
+                print(f"mining: timeout after {timeout_s}s — stopping early")
+                break
+            frames = frames_from_dataset(dataset, seq)
+            result = mine_sequence(frames, detect_fn, mcfg, self.bev,
+                                   detect_batch_fn=detect_batch_fn)
+            mined.update(result["mined_db"])
+            num_successful_tracks += int(result["num_tracks"])
+            if augm is None:
+                augm = result["augm_db"]
+            else:
+                for k in augm:
+                    augm[k].extend(result["augm_db"][k])
+            n_seqs += 1
+        if augm is None:  # an empty shard: an empty DB merges cleanly
+            augm = empty_augm_db()
+        augm = shrink_augm_db(augm, float(tc.max_augm_db_size_mb))
+        out = self.log_dir / f"mined_round_{self.round_idx}"
+        if world_size > 1:
+            # publish this worker's shard; the marker is written after both
+            # DB files, so a reader never sees a half-written npz
+            save_mined_boxes_db(mined, out / f"tracked_worker{worker_id}")
+            save_augm_db(augm, out / f"augm_db_worker{worker_id}")
+            (out / f".done_worker{worker_id}").touch()
+            if gather:
+                mined, augm_final = self._gather_worker_dbs(out, world_size)
+                self.mined_db = mined
+                self.augm_db = None
+                self._augm_db_final = augm_final
+                if worker_id == 0:  # the merged DBs for resume and eval
+                    save_mined_boxes_db(mined, out / "tracked")
+                    out.mkdir(parents=True, exist_ok=True)
+                    np.save(out / "augm_db.npy", augm_final, allow_pickle=True)
+            else:  # offline merge: keep this worker's shard only
+                self.mined_db, self.augm_db = mined, augm
+                self._augm_db_final = None
+        else:
+            self.mined_db, self.augm_db = mined, augm
+            self._augm_db_final = None
+            save_mined_boxes_db(mined, out / "tracked")
+            save_augm_db(augm, out / "augm_db")
+        # config and box statistics next to the DBs (tracking.py:1938-1950)
+        out.mkdir(parents=True, exist_ok=True)
+        with open(out / "tracking_cfg.yaml", "w") as f:
+            yaml.safe_dump(_to_plain(tc), f, sort_keys=False)
+        confs = np.concatenate(
+            [np.asarray(v["raw_box"]["probs"]).reshape(-1)
+             for v in mined.values() if len(v.get("track_id", ()))]
+            or [np.zeros(0, np.float32)]
+        )
+        stats = {
+            "num_boxes": int(confs.size),
+            "conf_mean": float(confs.mean()) if confs.size else 0.0,
+            "conf_min": float(confs.min()) if confs.size else 0.0,
+            "conf_max": float(confs.max()) if confs.size else 0.0,
+        }
+        with open(out / "tracked_box_stats.yaml", "w") as f:
+            yaml.safe_dump(stats, f)
+        n_boxes = sum(len(v["track_id"]) for v in mined.values())
+        w = self.tb("train", "mining/")
+        w.add_scalar("num_mined_boxes", n_boxes, self.round_idx)
+        # augm-DB snippet grids (visualize_box_augmentation_database.py)
+        from liso_tpu_torch.visu.augm_db_image import grid_of_snippets
+
+        for pi, page in enumerate(grid_of_snippets(augm, num_boxes=16, per_row=4)):
+            w.add_image(f"augm_db/snippets_{pi}", page, self.round_idx)
+        # animated summary of a sequence this worker mined
+        # (tracking.py:417-473), cached for the mining CLI's GIF
+        self._last_seq_frames = (
+            self.render_sequence_frames(dataset, max_frames=20,
+                                        seq_idxs=sequences[0])
+            if sequences else []
+        )
+        w.add_gif("tracked_sequence", self._last_seq_frames[:12], self.round_idx)
+        w.add_scalar("mining_time_s", time.time() - t0, self.round_idx)
+        print(f"round {self.round_idx}: mined {n_boxes} boxes over {n_seqs} "
+              f"sequences in {time.time() - t0:.0f}s")
+
+    def _gather_worker_dbs(self, out: Path, world_size: int,
+                           poll_s: float = 2.0, timeout_s: float = 3600.0):
+        """Wait for every worker's `.done_worker{i}` marker under `out`,
+        then merge the mined dicts (disjoint shards: a dict union) and the
+        finalized augm DBs (concatenated, track ids re-offset)."""
+        deadline = time.time() + timeout_s
+        missing = set(range(world_size))
+        while missing:
+            missing = {i for i in missing
+                       if not (out / f".done_worker{i}").exists()}
+            if not missing:
+                break
+            if time.time() > deadline:
+                raise TimeoutError(
+                    f"sharded mining gather: workers {sorted(missing)} did "
+                    f"not publish DBs under {out} within {timeout_s}s")
+            time.sleep(poll_s)
+        mined = merge_mined_dbs([
+            load_mined_boxes_db(out / f"tracked_worker{i}.npz")
+            for i in range(world_size)
+        ])
+        augm = merge_finalized_augm_dbs([
+            np.load(out / f"augm_db_worker{i}.npy", allow_pickle=True).item()
+            for i in range(world_size)
+        ])
+        return mined, augm
+
+    def render_sequence_frames(self, dataset: LidarDataset, max_frames: int = 20,
+                               grid_hw=(256, 256), seq_idxs=None):
+        """BEV images of one sequence with the mined boxes drawn (the TB GIF
+        and the mining CLI's); seq_idxs defaults to the first sequence."""
+        from liso_tpu_torch.eval.run_val import mined_db_predictor
+        from liso_tpu_torch.visu.bbox_image import render_frame
+
+        seq = (seq_idxs if seq_idxs is not None
+               else self._sequences(dataset)[0])[:max_frames]
+        predict = mined_db_predictor(self.mined_db or {})
+        images = []
+        for f in frames_from_dataset(dataset, seq):
+            pred = predict({"sample_id": [f.sample_id]})
+            v = pred["valid"][0]
+            boxes = {k: np.asarray(x[0])[v] for k, x in pred.items()
+                     if k != "valid"}
+            images.append(render_frame(
+                np.asarray(f.pcl)[np.asarray(f.valid, bool)][:, :2],
+                boxes if len(boxes["pos"]) else None,
+                self.bev.bev_range_m, grid_hw=grid_hw,
+            ))
+        return images
+
+    def _sequences(self, dataset: LidarDataset) -> List[List[int]]:
+        try:
+            n = getattr(dataset, "num_sequences", 1)
+            return [dataset.get_consecutive_sample_idxs_for_sequence(i)
+                    for i in range(n)]
+        except NotImplementedError:
+            return [list(range(len(dataset)))]
+
+    # ------------------------------------------------------------------
+    # the rest of the rounds loop: ROADMAP section A item 3
+    def run(self, *args, **kwargs):
+        raise NotImplementedError(f"LisoSelfTraining.run: {ITEM_3}")
+
+    def validate(self, *args, **kwargs):
+        raise NotImplementedError(f"LisoSelfTraining.validate: {ITEM_3}")
+
+    def save(self, *args, **kwargs):
+        raise NotImplementedError(f"LisoSelfTraining.save: {ITEM_3}")
+
+    def restore(self, *args, **kwargs):
+        raise NotImplementedError(f"LisoSelfTraining.restore: {ITEM_3}")
+
+    def _prepare_batch(self, *args, **kwargs):
+        raise NotImplementedError(f"LisoSelfTraining._prepare_batch: {ITEM_3}")
+
+
+def _sample(boxes: Boxes, j: int) -> Boxes:
+    """Sample j of batched Boxes."""
+    return Boxes(**{f.name: None if getattr(boxes, f.name) is None
+                    else getattr(boxes, f.name)[j]
+                    for f in dataclasses.fields(boxes)})

@@ -46,6 +46,9 @@ def gen():
         (2, 8192, 846400, 64, torch.bfloat16, "skewed"),
         # the SLIM experiment's fp32 shape (C = 64 over 846400 cells)
         (1, 65536, 846400, 64, torch.float32, "uniform"),
+        # detector-mode mining: predict_step on chunks of 8 frames, fp32
+        # C = 64 over 512 x 512 cells
+        (8, 65536, 512 * 512, 64, torch.float32, "uniform"),
     ],
 )
 def test_grid_scatter_max_occ_bitwise(gen, b, n, nc, c, dtype, layout):
@@ -610,3 +613,61 @@ def test_detector_train_step_kernels_vs_plain(gen):
         torch.testing.assert_close(out[0][k], out[1][k], rtol=1e-4, atol=0)
     assert torch.equal(preds[0].valid, preds[1].valid)
     torch.testing.assert_close(preds[0].pos, preds[1].pos, rtol=1e-4, atol=1e-4)
+
+
+def _cc_masks():
+    """Masks for connected_components at the mining grid: blobs, a dense
+    random field, and a serpentine corridor that hits the iteration cap."""
+    rng = np.random.RandomState(0)
+    blobs = np.zeros((512, 512), bool)
+    for _ in range(150):
+        r, c = rng.randint(0, 500, 2)
+        blobs[r:r + rng.randint(1, 12), c:c + rng.randint(1, 12)] = True
+    dense = rng.rand(512, 512) < 0.12
+    snake = np.zeros((512, 64), bool)
+    snake[::4] = True
+    for r in range(0, 508, 4):
+        snake[r:r + 5, 63 if (r // 4) % 2 == 0 else 0] = True
+    return {"blobs": (blobs, 2, 256), "dense": (dense, 1, 256),
+            "snake_cap": (snake, 0, 256)}
+
+
+@pytest.mark.parametrize("case", ["blobs", "dense", "snake_cap"])
+def test_connected_components_card_vs_cpu(gen, case):
+    from liso_tpu_torch.ops import clustering
+
+    mask, dilation, max_iters = _cc_masks()[case]
+    m = torch.from_numpy(mask)
+    want = clustering.connected_components(m, dilation, max_iters)
+    got = clustering.connected_components(m.cuda(), dilation, max_iters)
+    assert torch.equal(got.cpu(), want)
+    stats_c = clustering.cluster_stats(want, k_max=100)
+    stats_g = clustering.cluster_stats(got, k_max=100)
+    assert torch.equal(stats_g.count.cpu(), stats_c.count)
+    assert torch.equal(stats_g.valid.cpu(), stats_c.valid)
+    v = stats_c.valid
+    assert torch.allclose(stats_g.centroid_rc.cpu()[v], stats_c.centroid_rc[v],
+                          atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("method", ["jerk", "bike_model"])
+def test_smoothing_cuda_graph_equals_eager(gen, method):
+    """The captured iteration replays the eager loop's kernels: bitwise."""
+    from liso_tpu_torch.tracker import smoothing
+
+    t = torch.arange(24, dtype=torch.float32, device="cuda")
+    pos = torch.stack([1.5 * t, 0.4 * t, torch.full_like(t, -0.8)], -1)[None]
+    pos = pos + 0.15 * torch.randn(pos.shape, generator=gen, device="cuda")
+    yaw = torch.full((1, 24, 1), 0.26, device="cuda")
+    valid = torch.ones(1, 24, dtype=torch.bool, device="cuda")
+    if method == "jerk":
+        run = lambda g: smoothing.smooth_track_jerk(pos, valid, yaw,
+                                                    max_iters=300, graph=g)
+    else:
+        vlen = torch.tensor([4.0], device="cuda")
+        run = lambda g: smoothing.smooth_track_bike_model(
+            pos[:, :12], valid[:, :12], yaw[:, :12], vlen, max_iters=100,
+            graph=g)
+    eager, graph = run(False), run(True)
+    for a, b in zip(eager, graph):
+        assert torch.equal(a, b)

@@ -56,6 +56,8 @@ def test_package_imports_with_jax_blocked():
         "import liso_tpu_torch.data.ground, liso_tpu_torch.utils.checkpoint\n"
         "import liso_tpu_torch.train.slim_experiment\n"
         "import liso_tpu_torch.cli.slim_cli, liso_tpu_torch.visu.bbox_image\n"
+        "import liso_tpu_torch.train.liso_loop, liso_tpu_torch.ops.soft_masks\n"
+        "import liso_tpu_torch.visu.augm_db_image\n"
         "print('ok')\n"
     )
     out = subprocess.run(

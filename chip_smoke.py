@@ -94,7 +94,28 @@ Phases, each printing JSON lines:
                (detect, the frame program), tracker host ms, refinement and
                smoothing ms per track, tracks, boxes, DB bytes, the detect
                stage's device busy share; smoothing eager against its CUDA
-               graph (bitwise) and the bike model on one track.
+               graph (bitwise) and the bike model on one track;
+  9. eval    - evaluation as `eval_cli -c bev_100m_512 centerpoint liso`
+               composes it, on the mining phase's drive with its round-0
+               DB and round-1 detector: K1 held bitwise and timed at fp32
+               C 64, batch 1, 512^2 cells (predict_step at batch 1), its
+               launch confirmed by the profiler; run_val over the round-0
+               DB on the 64 train frames (as mining_cli); validate on the 16
+               val frames and its val-on-train pass over the 64 train
+               frames; eval_cli's flow-cluster and echo_gt predictors in
+               this process (echo_gt: every visible iou_bev AP 1); launches
+               reset just before each run and read just after; validate
+               again through the plain versions (cuDNN deterministic: the
+               same kept boxes within DET_BOX_ATOL, metrics within
+               EV_METRIC_ATOL); the IoU matrices of validate's first
+               samples on the card against the float64 oracle and the CPU;
+               every run's card predictions through run_val on the CPU (the
+               same keys, values within EV_METRIC_ATOL, IoUs near a
+               matching threshold named); a checkpoint of the detector
+               restored bitwise, and eval_cli on it in a subprocess, whose
+               printed metrics must equal validate's exactly; seconds per
+               run, host ms per batch by stage (predict, IoU, banks,
+               flow metrics), the predict stage's device busy share.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. A failed check, or any exception, prints one
 line {"phase": "failed", "check": "<function>:<line>", "message": "..."}
@@ -148,6 +169,15 @@ M_FRAMES, M_PTS, M_CHUNK, M_SMOOTH_ITERS, M_DIMS_BIAS = 64, 65536, 8, 2000, 6.0
 # moves by up to 0.068 m when its input moves by one ulp,
 # tests/test_torch_tracker.py), dims within M_DIMS_ATOL
 M_CPU_FRAMES, M_POS_ATOL, M_ROT_ATOL, M_DIMS_ATOL = 16, 0.1, 0.1, 1e-3
+# Evaluation (run_val, validate, eval_cli) at the mining phase's config and
+# drive: the IoU matrices of run 2's first EV_IOU_SAMPLES samples on the
+# card against the float64 oracle (the JAX test's limit,
+# tests/test_iou_nms.py) and against the port on the CPU; metric dicts
+# (card against the CPU, kernels against plain) within EV_METRIC_ATOL; an
+# IoU within EV_NEAR of a matching threshold (EV_THRESHOLDS: the banks'
+# iou_matching_thresholds) is named in the result
+EV_IOU_SAMPLES, EV_IOU_ORACLE_ATOL, EV_IOU_CPU_ATOL = 4, 2e-4, 1e-5
+EV_METRIC_ATOL, EV_NEAR, EV_THRESHOLDS = 1e-6, 1e-5, (0.25, 0.3, 0.4, 0.5, 0.7)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -1953,6 +1983,364 @@ def phase_mining(kernels):
     finally:
         tmp.cleanup()
     res["phase_s"] = time.perf_counter() - t_phase
+    # the eval phase's inputs: round 0's mined DB and round 1's detector
+    return kres, res, {"mined_db_round0": mined0, "detector": det}
+
+
+class EvalRecorder:
+    """Wraps run_val where the eval phase's entry points call it
+    (liso_loop.run_val, eval_cli.run_val) and what it calls per batch: each
+    call's batches and predictions (host numpy) and every IoU matrix, and
+    the host ms of the predictor, of iou_matrix_host (its result is copied
+    to the host, so the card's work is awaited), of MetricBanks.update and
+    of FlowMetrics.update. Installed with `with`, restored on exit; call
+    `run_val` itself for a direct run."""
+
+    def __init__(self):
+        self.calls = []
+
+    def run_val(self, batches, predict, **kw):
+        import numpy as np
+
+        call = {"kw": kw, "batches": [], "preds": [], "predict_ms": [],
+                "banks_ms": [], "flow_ms": [], "iou_ms": [], "iou": []}
+        self.calls.append(call)
+
+        def recorded(batch):
+            t0 = time.perf_counter()
+            out = predict(batch)
+            call["predict_ms"].append((time.perf_counter() - t0) * 1e3)
+            call["batches"].append(batch)
+            call["preds"].append({k: np.asarray(v) for k, v in out.items()})
+            return out
+
+        t0 = time.perf_counter()
+        out = self._inner(batches, recorded, **kw)
+        call["seconds"] = time.perf_counter() - t0
+        call["metrics"] = dict(out)  # validate adds to the dict it gets
+        return out
+
+    def _timed(self, key, fn, record=None):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            call = self.calls[-1]
+            call[key].append((time.perf_counter() - t0) * 1e3)
+            if record:
+                record(call, a, r)
+            return r
+        return wrapped
+
+    def __enter__(self):
+        from liso_tpu_torch.cli import eval_cli
+        from liso_tpu_torch.eval import flow_metrics
+        from liso_tpu_torch.eval import run_val as rv
+        from liso_tpu_torch.train import liso_loop
+
+        def keep_iou(call, a, mat):
+            gt, pred, mode = a[:3]
+            call["iou"].append({"batch": len(call["preds"]) - 1, "mode": mode,
+                                "gt": gt, "pred": pred, "mat": mat})
+
+        self._inner = rv.run_val
+        self._saved = [(o, n, getattr(o, n)) for o, n in (
+            (liso_loop, "run_val"), (eval_cli, "run_val"),
+            (rv, "iou_matrix_host"), (rv.MetricBanks, "update"),
+            (flow_metrics.FlowMetrics, "update"))]
+        liso_loop.run_val = eval_cli.run_val = self.run_val
+        rv.iou_matrix_host = self._timed("iou_ms", rv.iou_matrix_host, keep_iou)
+        rv.MetricBanks.update = self._timed("banks_ms", rv.MetricBanks.update)
+        flow_metrics.FlowMetrics.update = self._timed(
+            "flow_ms", flow_metrics.FlowMetrics.update)
+        return self
+
+    def __exit__(self, *exc):
+        for o, n, f in self._saved:
+            setattr(o, n, f)
+        return False
+
+
+def eval_call_summary(call):
+    """Seconds of one run_val call and its host ms per batch by stage."""
+    n = len(call["predict_ms"])
+    return {"seconds": call["seconds"], "batches": n,
+            "predict_ms_per_batch": sum(call["predict_ms"]) / n,
+            "predict_ms_median": statistics.median(call["predict_ms"]),
+            "iou_ms_per_batch": sum(call["iou_ms"]) / n,
+            "iou_calls": len(call["iou_ms"]),
+            "banks_host_ms_per_batch": (sum(call["banks_ms"])
+                                        - sum(call["iou_ms"])) / n,
+            "flow_metrics_ms_per_batch": sum(call["flow_ms"]) / n,
+            "metric_keys": len(call["metrics"])}
+
+
+def metrics_diff(got, want):
+    """(same keys, largest |difference| over the shared keys, bitwise)."""
+    import math
+
+    diff = 0.0
+    for k in set(got) & set(want):
+        a, b = float(got[k]), float(want[k])
+        if not (math.isnan(a) and math.isnan(b)):
+            diff = max(diff, abs(a - b) if a == a and b == b else math.inf)
+    bitwise = set(got) == set(want) and all(
+        repr(float(got[k])) == repr(float(want[k])) for k in want)
+    return set(got) == set(want), diff, bitwise
+
+
+def near_threshold_pairs(call):
+    """Every IoU of a call within EV_NEAR of a matching threshold."""
+    import numpy as np
+
+    out = []
+    for rec in call["iou"]:
+        for th in EV_THRESHOLDS:
+            for g, p in zip(*np.nonzero(np.abs(rec["mat"] - th) <= EV_NEAR)):
+                out.append({"batch": rec["batch"], "mode": rec["mode"],
+                            "gt": int(g), "pred": int(p),
+                            "iou": float(rec["mat"][g, p]), "threshold": th})
+    return out
+
+
+def phase_eval(kernels, handoff):
+    """Evaluation at `eval_cli -c bev_100m_512 centerpoint liso`: run_val
+    over the mining phase's round-0 DB (64 train frames), validate with its
+    round-1 detector (16 val frames + the val-on-train pass), eval_cli on a
+    checkpoint of that detector in a subprocess, and eval_cli's
+    flow-cluster and echo_gt predictors in this process."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.cli import eval_cli
+    from liso_tpu_torch.cli.common import DEFAULT_CFG
+    from liso_tpu_torch.cli.slim_cli import build_datasets
+    from liso_tpu_torch.data.pipeline import Prefetcher
+    from liso_tpu_torch.eval import iou_oracle
+    from liso_tpu_torch.eval import run_val as rv
+    from liso_tpu_torch.eval.od_metrics import iou_matrix_host
+    from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
+    from liso_tpu_torch.train import liso_loop
+    from liso_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from liso_tpu_torch.utils.config import parse_config
+
+    t_phase = time.perf_counter()
+    configs = ["bev_100m_512", "centerpoint", "liso"]
+    cfg = parse_config(DEFAULT_CFG, configs)
+    train_ds, val_ds, bev = build_datasets(cfg, False)
+    got_cfg = (bev.grid_size, len(train_ds), len(val_ds), val_ds.cfg.n_max,
+               int(cfg.validation.num_val_steps),
+               int(cfg.validation.num_val_on_train_steps))
+    if got_cfg != ((D_GRID, D_GRID), M_FRAMES, M_FRAMES // 4, M_PTS, 500, 125):
+        fail(f"bev_100m_512 centerpoint liso gave {got_cfg}")
+    det, mined0 = handoff["detector"], handoff["mined_db_round0"]
+    zero = {k: 0 for k in kernels.launches}
+    banks = rv.MetricBanks(device="cpu")
+    res = {"phase": "eval", "configs": " ".join(configs) + " (eval_cli)",
+           "train_frames": len(train_ds), "val_frames": len(val_ds),
+           "n_max": M_PTS, "detector": f"mining round 1's: random weights "
+                                       f"(seed 0), dims head bias +{M_DIMS_BIAS}",
+           "banks": len(banks.range_banks) + len(banks.waymo_banks) + 3}
+
+    # K1 at evaluation's shape: predict_step at batch 1
+    s = val_ds[0]
+    pts = torch.as_tensor(s.frame_t0.pcl[None], device="cuda")
+    valid = torch.as_tensor(s.frame_t0.valid[None], device="cuda")
+    cells = prepare_pillar_inputs(pts, valid, bev).cell
+    kres = [check_scatter_max(torch.Generator(device="cuda").manual_seed(13),
+                              cells, bev.num_cells, 64, torch.float32)]
+    confirm_launches(lambda: det.predict_step(pts, valid),
+                     {**zero, "grid_scatter_max_occ": 1},
+                     "an eval predict_step at batch 1")
+
+    tmp = tempfile.TemporaryDirectory(prefix="eval_", dir=OUT_DIR)
+    launches = dict(zero)
+
+    def count(fn, expect_k1):
+        """fn() with the counts reset just before and read just after."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)
+        if got != {**zero, "grid_scatter_max_occ": expect_k1}:
+            fail(f"eval launches {got}, expected {expect_k1} of K1")
+        for k, v in got.items():
+            launches[k] += v
+        return out
+
+    try:
+        rec = EvalRecorder()
+        with rec:
+            # run 1: the round-0 DB as the predictor on the train frames, as
+            # mining_cli evaluates it
+            loader = Prefetcher(train_ds, batch_size=1, shuffle=False, num_workers=1)
+            m1 = count(lambda: rec.run_val(iter(loader), rv.mined_db_predictor(mined0)),
+                       0)
+            # run 2: LisoSelfTraining.validate with round 1's detector
+            loop = liso_loop.LisoSelfTraining(
+                cfg, lambda db: train_ds, val_ds, Path(tmp.name) / "loop",
+                data_cfg=train_ds.cfg, device="cuda")
+            loop.state = det
+            m2 = count(lambda: loop.validate(1), len(val_ds) + len(train_ds))
+            run1, run2_val, run2_vot = rec.calls
+            # run 4: eval_cli's flow-cluster and echo_gt predictors
+            m4 = {}
+            for name in ("flow_cluster_detector", "echo_gt"):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    m4[name] = count(lambda: eval_cli.main(
+                        ["-c", *configs, "--override_network", name,
+                         "--summary_dir", str(Path(tmp.name) / name)]), 0)
+            run4 = rec.calls[3:5]
+            # run 2 again through the plain versions, under cuDNN's
+            # deterministic algorithms
+            saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+            try:
+                loop.state = PlainDetector(det)
+                m2_plain = count(lambda: loop.validate(1), 0)
+            finally:
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+                loop.state = det
+            plain_calls = rec.calls[5:7]
+        res["launches"] = launches
+        res["runs"] = {"mined_db_train": eval_call_summary(run1),
+                       "validate_val": eval_call_summary(run2_val),
+                       "validate_val_on_train": eval_call_summary(run2_vot),
+                       "eval_cli_flow_cluster_detector": eval_call_summary(run4[0]),
+                       "eval_cli_echo_gt": eval_call_summary(run4[1])}
+        res["metric_keys"] = {"mined_db": len(m1), "validate": len(m2),
+                              "eval_cli": len(m4["echo_gt"])}
+        res["headline"] = {k: {m: v for m, v in d.items() if m.startswith("mAP")}
+                           for k, d in (("mined_db", m1), ("validate", m2),
+                                        ("flow_cluster_detector",
+                                         m4["flow_cluster_detector"]))}
+        for name, m in (("mined_db", m1), ("validate", m2), *m4.items()):
+            bad = [k for k, v in m.items() if not np.isfinite(v)]
+            if len(m) < 200 or bad:
+                fail(f"{name}: {len(m)} metric keys, not finite: {bad[:8]}")
+        echo = {k: v for k, v in m4["echo_gt"].items()
+                if k.startswith("final_result/visible/detection_metrics/")
+                and "/iou_bev/AP_overall_overall_" in k}
+        if not echo or min(echo.values()) < 0.99:
+            fail(f"echo_gt: visible iou_bev APs {echo}, expected 1")
+        res["echo_gt_visible_iou_bev_ap_min"] = min(echo.values())
+
+        # the predict stage of run 2 (val pass): device busy share
+        batches = run2_val["batches"]
+        _, dev_ms, rows, _ = profile_window(lambda: [det.predict_step(
+            torch.as_tensor(b["pcl_t0"], device="cuda"),
+            torch.as_tensor(b["valid_t0"], device="cuda")) for b in batches])
+        res["validate_predict_stage"] = {
+            "host_ms": sum(run2_val["predict_ms"]), "device_ms": dev_ms,
+            "device_busy_share": dev_ms / sum(run2_val["predict_ms"]),
+            "device_ms_by_family": families(rows)}
+
+        # IoU on the card: run 2's first samples, both modes
+        worst_oracle = worst_cpu = 0.0
+        overlapping = 0
+        for r in run2_val["iou"]:
+            if r["batch"] >= EV_IOU_SAMPLES:
+                break
+            g, p = r["gt"], r["pred"]
+            ref = getattr(iou_oracle, "iou_matrix_bev" if r["mode"] == "iou_bev"
+                          else "iou_matrix_3d")(g["pos"], g["dims"], g["rot"],
+                                                p["pos"], p["dims"], p["rot"])
+            cpu = iou_matrix_host(g, p, r["mode"], device="cpu")
+            if r["mat"].shape != ref.shape:
+                fail(f"IoU {r['mode']} shape {r['mat'].shape} vs {ref.shape}")
+            if r["mat"].size:
+                worst_oracle = max(worst_oracle, float(np.abs(r["mat"] - ref).max()))
+                worst_cpu = max(worst_cpu, float(np.abs(r["mat"] - cpu).max()))
+            overlapping += int((ref > 0).sum())
+        res["iou_on_card"] = {"samples": EV_IOU_SAMPLES, "overlapping_pairs": overlapping,
+                              "max_abs_diff_vs_oracle": worst_oracle,
+                              "max_abs_diff_vs_cpu": worst_cpu,
+                              "tolerance": {"oracle": EV_IOU_ORACLE_ATOL,
+                                            "cpu": EV_IOU_CPU_ATOL}}
+        if (worst_oracle > EV_IOU_ORACLE_ATOL or worst_cpu > EV_IOU_CPU_ATOL
+                or overlapping < 1):
+            fail(f"IoU on the card: {res['iou_on_card']}")
+
+        # kernels against plain: the same kept boxes, the same metrics
+        box_diff, same_valid = 0.0, True
+        for kc, pc in zip((run2_val, run2_vot), plain_calls):
+            for a, b in zip(kc["preds"], pc["preds"]):
+                same_valid &= bool(np.array_equal(a["valid"], b["valid"]))
+                if same_valid:
+                    box_diff = max(box_diff, *(float(np.abs(a[f] - b[f]).max())
+                                               for f in ("pos", "dims", "rot", "probs")))
+        same_keys, mdiff, bitwise = metrics_diff(m2, m2_plain)
+        res["kernel_vs_plain"] = {"same_valid": same_valid,
+                                  "boxes_max_abs_diff": box_diff,
+                                  "metrics_same_keys": same_keys,
+                                  "metrics_max_abs_diff": mdiff,
+                                  "metrics_bitwise": bitwise,
+                                  "tolerance": {"boxes": DET_BOX_ATOL,
+                                                "metrics": EV_METRIC_ATOL}}
+        if (not same_valid or box_diff > DET_BOX_ATOL or not same_keys
+                or mdiff > EV_METRIC_ATOL):
+            fail(f"validate, kernels vs plain: {res['kernel_vs_plain']}")
+
+        # the card against the CPU: the card's predictions through run_val
+        # on the CPU
+        cvc = {}
+        for name, call in (("mined_db_train", run1), ("validate_val", run2_val),
+                           ("validate_val_on_train", run2_vot)):
+            preds = iter(call["preds"])
+            kw = {k: v for k, v in call["kw"].items() if k != "writer"}
+            t0 = time.perf_counter()
+            cpu = rv.run_val(iter(call["batches"]), lambda b: next(preds),
+                             **{**kw, "device": "cpu"})
+            same_keys, mdiff, bitwise = metrics_diff(call["metrics"], cpu)
+            cvc[name] = {"same_keys": same_keys, "max_abs_diff": mdiff,
+                         "bitwise": bitwise, "cpu_s": time.perf_counter() - t0,
+                         "iou_within_near_of_a_threshold": near_threshold_pairs(call)}
+        res["card_vs_cpu"] = {**cvc, "tolerance": EV_METRIC_ATOL, "near": EV_NEAR}
+        if any(not c["same_keys"] or c["max_abs_diff"] > EV_METRIC_ATOL
+               for c in cvc.values()):
+            fail(f"run_val on the card vs the CPU: {res['card_vs_cpu']}")
+
+        # the checkpoint round trip and eval_cli on it, in its own process
+        ckpt = Path(tmp.name) / "ckpts"
+        save_checkpoint(ckpt, det.step, det)
+        restore_checkpoint(ckpt, det.step, loop.trainer)
+        diff = state_equal(det.state_dict(), loop.trainer.state_dict())
+        if diff:
+            fail(f"the detector's checkpoint restores differently at {diff[:8]}")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "liso_tpu_torch.cli.eval_cli", "-c", *configs,
+             "--load_checkpoint", str(ckpt), "--summary_dir",
+             str(Path(tmp.name) / "cli")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"eval_cli exited {out.returncode}: {out.stderr[-2000:]}")
+        # eval_cli names the per-class bank after the data source, validate
+        # after its default family
+        family = str(cfg.data.source).upper()
+        want = {k.replace("/KITTI/per_class/", f"/{family}/per_class/"): repr(float(v))
+                for k, v in m2.items() if not k.startswith("val_on_train/")}
+        printed = {}
+        for line in out.stdout.splitlines():
+            k, _, v = line.partition(": ")
+            if k in want:
+                printed[k] = v
+        differ = sorted(k for k in want if printed.get(k) != want[k])
+        res["eval_cli_checkpoint"] = {"wall_s": cli_s, "metrics": len(printed),
+                                      "differ_from_validate": differ[:8],
+                                      "checkpoint_restores_bitwise": True}
+        if differ:
+            fail(f"eval_cli on the checkpoint: {len(differ)} of {len(want)} "
+                 f"metrics differ from validate's, e.g. "
+                 f"{[(k, printed.get(k), want[k]) for k in differ[:4]]}")
+    finally:
+        tmp.cleanup()
+    res["phase_s"] = time.perf_counter() - t_phase
     return kres, res
 
 
@@ -2175,11 +2563,18 @@ def main() -> int:
         emit({"phase": "kernel", "path": "slim_experiment", **r})
         by_name[r["name"]]["slim_experiment_shape"] = shape_entry(r)
     torch.cuda.empty_cache()
-    mkres, mining = phase_mining(kernels)
+    mkres, mining, handoff = phase_mining(kernels)
     emit({**mining, "nvidia_smi": smi})
     for r in mkres:
         emit({"phase": "kernel", "path": "mine", **r})
         by_name[r["name"]]["mine_shape"] = shape_entry(r)
+    torch.cuda.empty_cache()
+    vkres, evaluation = phase_eval(kernels, handoff)
+    del handoff
+    emit({**evaluation, "nvidia_smi": smi})
+    for r in vkres:
+        emit({"phase": "kernel", "path": "eval", **r})
+        by_name[r["name"]]["eval_shape"] = shape_entry(r)
     for r in kres:
         name = r["name"]
         r["launches_by_path"] = {
@@ -2189,7 +2584,8 @@ def main() -> int:
                                 + experiment["eval_launches"][name]
                                 + experiment["export_launches"][name]),
             "mine": (mining["round0"]["launches"][name]
-                     + mining["round1"]["launches"][name])}
+                     + mining["round1"]["launches"][name]),
+            "eval": evaluation["launches"][name]}
         r["launches"] = sum(r["launches_by_path"].values())
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump({"device": device, "nvidia_smi": smi, "kernels": kres,
@@ -2198,6 +2594,7 @@ def main() -> int:
                    "slim_experiment_kernels": ekres,
                    "slim_experiment": experiment,
                    "mining_kernels": mkres, "mining": mining,
+                   "eval_kernels": vkres, "eval": evaluation,
                    "ptxas": ptxas,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     with open(OUT_DIR / "chip_smoke_profile.txt", "w") as f:
@@ -2237,14 +2634,15 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "kernel_only_ms", "host_ms",
             "library_ms_prezeroed", "train_shape", "detect_train_shape",
-            "slim_experiment_shape", "mine_shape",
+            "slim_experiment_shape", "mine_shape", "eval_shape",
             "second_shape", "decoder_shape", "host_steps_ms",
             "skewed_layout", "slim_step_layout", "serving_step_layout",
             "needed_pairs", "visited_pairs", "visited_over_needed",
             "band_bound_ms", "band_agreement")
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
           "slim_experiment_s": experiment["phase_s"],
-          "mining_s": mining["phase_s"], "nvidia_smi": smi})
+          "mining_s": mining["phase_s"], "eval_s": evaluation["phase_s"],
+          "nvidia_smi": smi})
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

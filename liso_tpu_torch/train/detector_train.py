@@ -11,7 +11,8 @@ AdamW update with optax's semantics under the OneCycle schedule.
 `predict_step` is the eval forward with sigmoid, confidence threshold, a
 pre-NMS cap and rotated NMS. Both run in fp32, as the JAX trainer does:
 TF32 is off for cuDNN convolutions and cuBLAS matmuls while a step runs,
-and the caller's settings are put back after it.
+and the caller's settings are put back after it. `state_dict()` /
+`load_state_dict()` carry the train state through `utils/checkpoint.py`.
 """
 from __future__ import annotations
 
@@ -75,6 +76,32 @@ class DetectorTrainer:
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.count = 0  # the optimizer's count: its schedule reads it
         self.step = 0
+
+    def state_dict(self) -> dict:
+        """The whole train state (live tensors, not copies): parameters and
+        batch-norm statistics, AdamW's moments and count, and the step."""
+        return {
+            "step": self.step,
+            "model": self.model.state_dict(),
+            "optimizer": {"mu": dict(self.mu), "nu": dict(self.nu),
+                          "count": self.count},
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Put a state_dict() back, copying every tensor into place on this
+        trainer's device."""
+        opt = state["optimizer"]
+        self.model.load_state_dict(state["model"])
+        with torch.no_grad():
+            for name in ("mu", "nu"):
+                mine = getattr(self, name)
+                if set(opt[name]) != set(mine):
+                    raise KeyError(f"{name} leaves "
+                                   f"{sorted(set(opt[name]) ^ set(mine))} differ")
+                for k, v in opt[name].items():
+                    mine[k].copy_(v)
+        self.count = int(opt["count"])
+        self.step = int(state["step"])
 
     def _loss(self, points, valid, target_boxes: Boxes, ignore_mask,
               plain: bool):

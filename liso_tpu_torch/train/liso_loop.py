@@ -1,13 +1,13 @@
-"""LISO self-training rounds, the mining half (port of the mining parts of
-liso_tpu/train/liso_loop.py).
+"""LISO self-training rounds: mining and validation (port of those parts
+of liso_tpu/train/liso_loop.py).
 
 Behavioral reference: liso/kabsch/liso_cli.py:58-723. In every round the
 current detector re-mines the box DB and the augmentation DB over whole
 drive sequences: round 0 with the flow-cluster bootstrap, later rounds
-with the trained detector. `LisoSelfTraining.mine(dataset)` is that pass.
-The rest of the rounds loop (`run`, `validate`, `save`, `restore`, the
-batch assembly) comes with ROADMAP section A item 3 and raises
-NotImplementedError until then.
+with the trained detector. `LisoSelfTraining.mine(dataset)` is that pass;
+`validate(step)` evaluates the detector through `eval.run_val`. The rest of
+the rounds loop (`run`, `save`, `restore`, the batch assembly) comes with
+ROADMAP section A item 2 and raises NotImplementedError until then.
 
 The detector and every device program run on the card unless the caller
 passes `device="cpu"`; without CUDA the constructor raises.
@@ -24,6 +24,8 @@ import torch
 import yaml
 
 from liso_tpu_torch.data.dataset import DataCfg, LidarDataset, pad_to
+from liso_tpu_torch.data.pipeline import Prefetcher
+from liso_tpu_torch.eval.run_val import run_val
 from liso_tpu_torch.models.box_decode import BoxPredictionCfg
 from liso_tpu_torch.models.flow_cluster_detector import (
     FlowClusterCfg,
@@ -49,7 +51,9 @@ from liso_tpu_torch.tracker.mining import (
 from liso_tpu_torch.train.detector_train import DetectorTrainer
 from liso_tpu_torch.utils.tb import TBFactory
 
-ITEM_3 = "ROADMAP section A item 3 (the rounds loop) is not ported yet"
+ITEM_2 = "ROADMAP section A item 2 (the rounds loop) is not ported yet"
+ITEM_3 = ("ROADMAP section A item 3 (other detectors and the non-baseline "
+          "CenterPoint) is not ported yet")
 
 
 def frames_from_dataset(dataset: LidarDataset, idxs: List[int]) -> List[Frame]:
@@ -106,6 +110,21 @@ def merge_mined_dbs(dbs: List[Dict[str, dict]]) -> Dict[str, dict]:
     for db in dbs:
         out.update(db)
     return out
+
+
+def detector_predictor(det: DetectorTrainer, device):
+    """run_val's predictor for a detector: each batch's clouds go to
+    `device`, predict_step runs there, and its boxes come back as numpy."""
+
+    def predict(batch):
+        boxes = det.predict_step(
+            torch.as_tensor(batch["pcl_t0"], device=device),
+            torch.as_tensor(batch["valid_t0"], device=device),
+        )
+        return {k: getattr(boxes, k).cpu().numpy()
+                for k in ("pos", "dims", "rot", "probs", "velo", "valid")}
+
+    return predict
 
 
 class LisoSelfTraining:
@@ -197,8 +216,7 @@ class LisoSelfTraining:
             steps = int(opt.num_training_steps) + 2
         if self.cfg.network.name in ("pointpillars", "pointrcnn"):
             raise NotImplementedError(
-                f"network {self.cfg.network.name!r}: ROADMAP section A item 4 "
-                "(other detectors) is not ported yet")
+                f"network {self.cfg.network.name!r}: {ITEM_3}")
         if not bool(self.cfg.network.centerpoint.use_baseline_parameters):
             raise NotImplementedError(
                 f"use_baseline_parameters=False: {ITEM_3}")
@@ -488,21 +506,75 @@ class LisoSelfTraining:
             return [list(range(len(dataset)))]
 
     # ------------------------------------------------------------------
-    # the rest of the rounds loop: ROADMAP section A item 3
-    def run(self, *args, **kwargs):
-        raise NotImplementedError(f"LisoSelfTraining.run: {ITEM_3}")
+    def validate(self, step: int, fast_test: bool = False):
+        """Evaluate the detector in `state` on the val set through run_val
+        (batch 1, as liso_cli.py:665-684), then, with
+        validation.num_val_on_train_steps, on the training distribution
+        (the factory without mined boxes). Returns the metric dict, with the
+        val-on-train mAPs under `val_on_train/`."""
+        if self.val_dataset is None:
+            return {}
+        loader = Prefetcher(
+            self.val_dataset, batch_size=1, shuffle=False, num_workers=2
+        )
+        # cap mid-training validation like the reference's num_val_steps
+        # batches (liso_cli.py:665-684); 0/absent = full val set
+        num_val = int(getattr(self.cfg.validation, "num_val_steps", 0) or 0)
+        max_batches = 4 if fast_test else (num_val or None)
+        dev = self.device
+        predict = detector_predictor(self.state, dev)
+        metrics = run_val(
+            iter(loader), predict, max_batches=max_batches,
+            writer=self.tb("val", "detector/"), global_step=step,
+            bev_range_m=self.bev.bev_range_m, device=dev,
+        )
+        self.tb("val", "detector/").add_scalars(
+            {k: v for k, v in metrics.items()
+             if k.startswith(("mAP", "AP_overall_overall", "ATE", "AOE"))},
+            step,
+        )
+        # second eval pass over the TRAINING distribution (val-on-train,
+        # reference liso_cli.py:665-684 + main_utils.py:323-463): the
+        # factory without mined boxes yields GT targets for measurement
+        num_vot = int(
+            getattr(self.cfg.validation, "num_val_on_train_steps", 0) or 0
+        )
+        if num_vot:
+            vot_ds = self.train_dataset_factory(None)
+            vot_loader = Prefetcher(
+                vot_ds, batch_size=1, shuffle=False, num_workers=2
+            )
+            vot_metrics = run_val(
+                iter(vot_loader), predict,
+                max_batches=4 if fast_test else num_vot,
+                writer=self.tb("val_on_train", "detector/"),
+                global_step=step, bev_range_m=self.bev.bev_range_m,
+                device=dev,
+            )
+            self.tb("val_on_train", "detector/").add_scalars(
+                {k: v for k, v in vot_metrics.items()
+                 if k.startswith(("mAP", "AP_overall_overall", "ATE", "AOE"))},
+                step,
+            )
+            metrics.update(
+                {f"val_on_train/{k}": v for k, v in vot_metrics.items()
+                 if k.startswith("mAP")}
+            )
+        return metrics
 
-    def validate(self, *args, **kwargs):
-        raise NotImplementedError(f"LisoSelfTraining.validate: {ITEM_3}")
+    # ------------------------------------------------------------------
+    # the rest of the rounds loop: ROADMAP section A item 2
+    def run(self, *args, **kwargs):
+        raise NotImplementedError(f"LisoSelfTraining.run: {ITEM_2}")
 
     def save(self, *args, **kwargs):
-        raise NotImplementedError(f"LisoSelfTraining.save: {ITEM_3}")
+        raise NotImplementedError(f"LisoSelfTraining.save: {ITEM_2}")
 
     def restore(self, *args, **kwargs):
-        raise NotImplementedError(f"LisoSelfTraining.restore: {ITEM_3}")
+        raise NotImplementedError(f"LisoSelfTraining.restore: {ITEM_2}")
 
     def _prepare_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"LisoSelfTraining._prepare_batch: {ITEM_3}")
+        raise NotImplementedError(f"LisoSelfTraining._prepare_batch: {ITEM_2}")
 
 
 def _sample(boxes: Boxes, j: int) -> Boxes:

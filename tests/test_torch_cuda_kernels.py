@@ -49,6 +49,8 @@ def gen():
         # detector-mode mining: predict_step on chunks of 8 frames, fp32
         # C = 64 over 512 x 512 cells
         (8, 65536, 512 * 512, 64, torch.float32, "uniform"),
+        # evaluation: predict_step at batch 1 (run_val, validate, eval_cli)
+        (1, 65536, 512 * 512, 64, torch.float32, "uniform"),
     ],
 )
 def test_grid_scatter_max_occ_bitwise(gen, b, n, nc, c, dtype, layout):
@@ -671,3 +673,31 @@ def test_smoothing_cuda_graph_equals_eager(gen, method):
     eager, graph = run(False), run(True)
     for a, b in zip(eager, graph):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["iou_bev", "iou_3d"])
+def test_iou_matrix_host_on_the_card_vs_oracle(gen, mode):
+    """od_metrics.iou_matrix_host computed on the card: within 2e-4 of the
+    float64 oracle (tests/test_iou_nms.py's limit) and within 1e-5 of the
+    same function on the CPU, on rotated, shifted and disjoint pairs."""
+    from liso_tpu_torch.eval import iou_oracle
+    from liso_tpu_torch.eval.od_metrics import iou_matrix_host
+
+    rng = np.random.RandomState(0)
+
+    def boxes(k):
+        return {"pos": np.concatenate([rng.uniform(-8, 8, (k, 2)),
+                                       rng.uniform(-1, 1, (k, 1))], -1).astype(np.float32),
+                "dims": rng.uniform(1, 5, (k, 3)).astype(np.float32),
+                "rot": rng.uniform(-np.pi, np.pi, (k, 1)).astype(np.float32)}
+
+    gt, pred = boxes(12), boxes(40)
+    pred["pos"][:12] = gt["pos"] + rng.normal(0, 0.3, (12, 3)).astype(np.float32)
+    got = iou_matrix_host(gt, pred, mode, device="cuda")
+    cpu = iou_matrix_host(gt, pred, mode, device="cpu")
+    oracle = getattr(iou_oracle, "iou_matrix_bev" if mode == "iou_bev"
+                     else "iou_matrix_3d")(gt["pos"], gt["dims"], gt["rot"],
+                                          pred["pos"], pred["dims"], pred["rot"])
+    assert got.shape == (12, 40) and (got > 0.1).sum() >= 6
+    np.testing.assert_allclose(got, oracle, atol=2e-4, rtol=0)
+    np.testing.assert_allclose(got, cpu, atol=1e-5, rtol=0)

@@ -58,6 +58,11 @@ def test_package_imports_with_jax_blocked():
         "import liso_tpu_torch.cli.slim_cli, liso_tpu_torch.visu.bbox_image\n"
         "import liso_tpu_torch.train.liso_loop, liso_tpu_torch.ops.soft_masks\n"
         "import liso_tpu_torch.visu.augm_db_image\n"
+        "import liso_tpu_torch.eval.iou_oracle, liso_tpu_torch.eval.od_metrics\n"
+        "import liso_tpu_torch.eval.waymo_metrics\n"
+        "import liso_tpu_torch.eval.nuscenes_wrapper\n"
+        "import liso_tpu_torch.eval.run_val, liso_tpu_torch.cli.eval_cli\n"
+        "import liso_tpu_torch.utils.misc, liso_tpu_torch.utils.timing\n"
         "print('ok')\n"
     )
     out = subprocess.run(

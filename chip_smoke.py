@@ -116,6 +116,27 @@ Phases, each printing JSON lines:
                printed metrics must equal validate's exactly; seconds per
                run, host ms per batch by stage (predict, IoU, banks,
                flow metrics), the predict stage's device busy share.
+  10. rounds - the rounds loop as `liso_cli -c bev_100m_512 centerpoint
+               liso` runs it, in this process, cut only in its step counts
+               (R_KV: rounds of 8 steps, 17 in all, a checkpoint every 8, a
+               validate at 16), on the 64-frame drive: bootstrap mining at
+               step 0, detector mining at 8 and 16, the weight reset at 16,
+               copy-paste on; launches reset just before and read just
+               after; the reset's weights against init_weights(seed + 3) on
+               the CPU (bitwise), AdamW's count 1 in the step-16 checkpoint;
+               the first prepared batch's step against the CPU from the
+               same initial weights (losses within R_CPU_RTOL); K1 and the
+               fused VJP held bitwise and timed at that batch's cells (fp32
+               C 64, batch 2, n_max 65536, 512^2 cells); one loop step
+               against its plain run (cuDNN deterministic, losses within
+               DET_LOSS_RTOL) and under the profiler; the step-16
+               checkpoint and DBs restored bitwise into a fresh loop; then
+               liso_cli resumed from the step-8 checkpoint in its own
+               process, which must mine round 2 and reset at 16 and save 16
+               and 17; per round mining seconds, tracks, boxes and the mined
+               DB's run_val seconds, per step _prepare_batch and train-step
+               ms and the loss, validate seconds, save and restore ms, the
+               resume's wall time, the step's device busy share.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. A failed check, or any exception, prints one
 line {"phase": "failed", "check": "<function>:<line>", "message": "..."}
@@ -178,6 +199,18 @@ M_CPU_FRAMES, M_POS_ATOL, M_ROT_ATOL, M_DIMS_ATOL = 16, 0.1, 0.1, 1e-3
 # iou_matching_thresholds) is named in the result
 EV_IOU_SAMPLES, EV_IOU_ORACLE_ATOL, EV_IOU_CPU_ATOL = 4, 2e-4, 1e-5
 EV_METRIC_ATOL, EV_NEAR, EV_THRESHOLDS = 1e-6, 1e-5, (0.25, 0.3, 0.4, 0.5, 0.7)
+# The rounds loop: `liso_cli -c bev_100m_512 centerpoint liso` on the
+# 64-frame drive, cut only in its step counts (R_KV): rounds of R_SPR steps
+# instead of 30000, R_STEPS in all instead of 350000, a checkpoint every
+# R_SPR steps, a validate at R_VAL. With the preset's
+# drop_net_weights_every_nth_round 2: mining at 0, 8 and 16, the reset at
+# 16. The first step's loss terms, card against the CPU, within R_CPU_RTOL
+# (the detector step's CPU parity limit, tests/test_torch_detector_train.py)
+R_SPR, R_STEPS, R_VAL, R_SNAP_STEP, R_CPU_RTOL = 8, 17, 16, 16, 1e-4
+R_KV = [["optimization", "rounds", "steps_per_round", str(R_SPR)],
+        ["optimization", "num_training_steps", str(R_STEPS)],
+        ["checkpoint", "save_model_every", str(R_SPR)],
+        ["validation", "val_every_n_steps", str(R_VAL)]]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -323,9 +356,10 @@ def dtype_name(dtype) -> str:
     return {"torch.bfloat16": "bf16", "torch.float32": "fp32"}[str(dtype)]
 
 
-def check_scatter_max(gen, cells, nc, c, dtype):
+def check_scatter_max(gen, cells, nc, c, dtype, timed=True):
     """K1 against its plain version (bitwise) on signed random features
-    (so negative maxima are covered) at the given cells."""
+    (so negative maxima are covered) at the given cells; with timed=False
+    only that check (no timing, no profiler)."""
     import torch
 
     from liso_tpu_torch.ops import grid_scatter
@@ -338,6 +372,8 @@ def check_scatter_max(gen, cells, nc, c, dtype):
     if not (torch.equal(got_g, want_g) and torch.equal(got_o, want_o)):
         fail(f"K1 grid_scatter_max_occ differs from its plain version at "
              f"feats [{b}, {n}, {c}] {dtype_name(dtype)}")
+    if not timed:
+        return None
     idx = cells.long().clamp(max=nc).unsqueeze(-1).expand(-1, -1, c)
     lib_out = torch.zeros(b, nc + 1, c, dtype=dtype, device="cuda")
 
@@ -466,10 +502,11 @@ def wrapper_host_steps(grid, cells):
     return {k: host_ms(fn, reps=200) for k, fn in steps.items()}
 
 
-def check_scatter_max_vjp(gen, cells, nc, c, dtype):
+def check_scatter_max_vjp(gen, cells, nc, c, dtype, timed=True):
     """The fused scatter-max VJP against its plain version (bitwise, as bit
     patterns) at the given cells: features on a coarse lattice (ties that
-    all win), the grid from K1, a random cotangent."""
+    all win), the grid from K1, a random cotangent; with timed=False only
+    that check."""
     import torch
 
     from liso_tpu_torch.ops import grid_scatter
@@ -487,6 +524,8 @@ def check_scatter_max_vjp(gen, cells, nc, c, dtype):
     if not torch.equal(got.view(bits), want.view(bits)):
         fail(f"scatter_max_vjp differs from its plain version at feats "
              f"[{b}, {n}, {c}] {dtype_name(dtype)}")
+    if not timed:
+        return None
     idx = cells.long().clamp(max=nc - 1)[..., None].expand(-1, -1, c)
     kept = (cells < nc)[..., None]
 
@@ -2344,6 +2383,399 @@ def phase_eval(kernels, handoff):
     return kres, res
 
 
+class RoundsRecorder:
+    """Wraps what liso_cli's rounds loop calls (LisoSelfTraining.run, mine,
+    _prepare_batch, _init_detector, validate, save; liso_loop.run_val;
+    DetectorTrainer.train_step) at class level: the loop object, the first
+    prepared batch (kept on the card), the model state right after each
+    detector init (on the host), each step's metrics, each round's mining
+    seconds and DB sizes, each run_val call's seconds, each validate's and
+    save's time, and the state and DBs saved at step R_SNAP_STEP. Installed
+    with `with`, restored on exit."""
+
+    def __init__(self):
+        self.loop = None
+        self.batch = None
+        self.inits, self.metrics, self.rounds = [], [], []
+        self.run_vals, self.validates, self.saves = [], [], []
+        self.snap = None
+        self._in_validate = False
+
+    def __enter__(self):
+        import copy
+
+        import torch
+
+        from liso_tpu_torch.train import detector_train, liso_loop
+
+        L, rec = liso_loop.LisoSelfTraining, self
+        self._saved = [(o, n, getattr(o, n)) for o, n in (
+            (L, "run"), (L, "mine"), (L, "_prepare_batch"), (L, "_init_detector"),
+            (L, "validate"), (L, "save"), (liso_loop, "run_val"),
+            (detector_train.DetectorTrainer, "train_step"))]
+        f = {n: fn for _, n, fn in self._saved}
+
+        def run(loop, *a, **k):
+            rec.loop = loop
+            return f["run"](loop, *a, **k)
+
+        def mine(loop, dataset, *a, **k):
+            step, r = len(rec.metrics), loop.round_idx
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f["mine"](loop, dataset, *a, **k)
+            torch.cuda.synchronize()
+            tracks, boxes = db_stats(loop.mined_db)
+            rec.rounds.append({"step": step, "round": r,
+                               "seconds": time.perf_counter() - t0,
+                               "tracks": tracks, "boxes": boxes,
+                               "snippets": len(loop.augm_db["boxes"])})
+
+        def prepare(loop, batch):
+            out = f["_prepare_batch"](loop, batch)
+            if rec.batch is None:
+                rec.batch = out
+            return out
+
+        def init(loop, seed):
+            f["_init_detector"](loop, seed)
+            rec.inits.append({"step": len(rec.metrics), "round": loop.round_idx,
+                              "seed": seed,
+                              "model": to_host(loop.trainer.model.state_dict())})
+
+        def validate(loop, step, *a, **k):
+            rec._in_validate = True
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return f["validate"](loop, step, *a, **k)
+            finally:
+                torch.cuda.synchronize()
+                rec._in_validate = False
+                rec.validates.append({"step": step,
+                                      "seconds": time.perf_counter() - t0})
+
+        def run_val(*a, **k):
+            t0 = time.perf_counter()
+            out = f["run_val"](*a, **k)
+            rec.run_vals.append({"validate": rec._in_validate,
+                                 "seconds": time.perf_counter() - t0})
+            return out
+
+        def save(loop, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f["save"](loop, step)
+            rec.saves.append({"step": step,
+                              "ms": (time.perf_counter() - t0) * 1e3})
+            if step == R_SNAP_STEP:
+                rec.snap = {"state": to_host(loop.trainer.state_dict()),
+                            "mined_db": copy.deepcopy(loop.mined_db),
+                            "augm_db": copy.deepcopy(loop.augm_db)}
+
+        def train_step(trainer, *a, **k):
+            m = f["train_step"](trainer, *a, **k)
+            rec.metrics.append({n: float(v) for n, v in m.items()})
+            return m
+
+        L.run, L.mine, L._prepare_batch, L._init_detector = run, mine, prepare, init
+        L.validate, L.save, liso_loop.run_val = validate, save, run_val
+        detector_train.DetectorTrainer.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        for o, n, fn in self._saved:
+            setattr(o, n, fn)
+        return False
+
+
+def to_host(tree):
+    """A copy of a state tree (nested dicts) with every tensor on the host."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu().clone() if hasattr(tree, "detach") else tree
+
+
+def run_lines(out):
+    """(step, round) of each 'step N: mining round R' line, and the rounds
+    reset ('round R: resetting ...'), from the rounds loop's stdout."""
+    import re
+
+    mined = [(int(a), int(b)) for a, b in
+             re.findall(r"^step (\d+): mining round (\d+)$", out, re.M)]
+    resets = [int(r) for r in re.findall(r"^round (\d+): resetting", out, re.M)]
+    return mined, resets
+
+
+def phase_rounds(kernels):
+    """The rounds loop as `liso_cli -c bev_100m_512 centerpoint liso` runs
+    it, cut only in its step counts (R_KV), on the 64-frame drive; then the
+    same command resumed from the step-8 checkpoint in its own process."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.cli import liso_cli
+    from liso_tpu_torch.cli.common import DEFAULT_CFG
+    from liso_tpu_torch.cli.slim_cli import build_datasets, make_train_dataset
+    from liso_tpu_torch.data.pipeline import Prefetcher
+    from liso_tpu_torch.models.layers import init_weights
+    from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
+    from liso_tpu_torch.tracker.dbs import finalize_augm_db, load_augm_db
+    from liso_tpu_torch.train import liso_loop
+    from liso_tpu_torch.utils.checkpoint import STATE_FILE, latest_step
+    from liso_tpu_torch.utils.config import parse_config
+
+    t_phase = time.perf_counter()
+    configs = ["bev_100m_512", "centerpoint", "liso"]
+    cfg = parse_config(DEFAULT_CFG, configs, R_KV)
+    opt, rd = cfg.optimization, cfg.optimization.rounds
+    got_cfg = (tuple(cfg.data.img_grid_size), int(cfg.data.batch_size),
+               int(rd.steps_per_round), int(rd.drop_net_weights_every_nth_round),
+               int(opt.num_training_steps), bool(cfg.data.augmentation.boxes.active),
+               int(cfg.checkpoint.save_model_every),
+               int(cfg.validation.val_every_n_steps), int(cfg.seed))
+    if got_cfg != ((D_GRID, D_GRID), D_BATCH, R_SPR, 2, R_STEPS, True, R_SPR,
+                   R_VAL, 0):
+        fail(f"{' '.join(configs)} with {R_KV} gave {got_cfg}")
+    ds_cfg = build_datasets(cfg, False, target="object")[0].cfg
+    seed = int(cfg.seed)
+    argv = ["-c", *configs]
+    for kv in R_KV:
+        argv += ["-kv", *kv]
+    zero = {k: 0 for k in kernels.launches}
+    loss_keys = ("loss/probs", "loss/rot", "loss/dims", "loss/pos", "loss/total")
+    tmp = tempfile.TemporaryDirectory(prefix="rounds_", dir=OUT_DIR)
+    try:
+        # 1. before the run, so that every profiler session of the phase
+        # comes before the run's fork workers start and stop (on an H100,
+        # three kernel_only_ms sessions after them saw no launch of the
+        # VJP): a batch of the drive as _prepare_batch gives it to the first
+        # step, K1 and the fused VJP held and timed at its cells, the loop's
+        # first detector (seed + 1) stepped with kernels and through the
+        # plain versions (cuDNN deterministic), and a profiled step
+        pre = liso_loop.LisoSelfTraining(
+            cfg, lambda db: make_train_dataset(cfg, ds_cfg, False, db), None,
+            Path(tmp.name) / "pre", data_cfg=ds_cfg, device="cuda")
+        loader = Prefetcher(make_train_dataset(cfg, ds_cfg, False),
+                            batch_size=D_BATCH, num_workers=1)
+        it = iter(loader)
+        pts, valid, target = pre._prepare_batch(next(it))
+        it.close()
+        loader.close()
+        bev = pre.bev
+        cells = prepare_pillar_inputs(pts, valid, bev).cell
+        kres = [check(torch.Generator(device="cuda").manual_seed(s), cells,
+                      bev.num_cells, 64, torch.float32)
+                for check, s in ((check_scatter_max, 15), (check_scatter_max_vjp, 16))]
+        pre._init_detector(seed + 1)
+        trainer = pre.trainer
+        snap = snapshot(trainer, ("mu", "nu", "step", "count"))
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            mk = trainer.train_step(pts, valid, target)
+            restore(trainer, snap)
+            kernels.reset_launches()
+            mp = trainer.train_step(pts, valid, target, plain=True)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        if any(kernels.launches.values()):
+            fail(f"the plain loop step launched kernels: {dict(kernels.launches)}")
+        kvp = {k: (float(mk[k]), float(mp[k])) for k in loss_keys}
+        if any(abs(a - b) > DET_LOSS_RTOL * abs(b) for a, b in kvp.values()):
+            fail(f"a loop step, kernels vs plain: {kvp}")
+        restore(trainer, snap)
+        counts, dev_ms, rows, _ = confirm_launches(
+            lambda: trainer.train_step(pts, valid, target),
+            {**zero, "grid_scatter_max_occ": 1, "scatter_max_vjp": 1},
+            "a rounds loop step")
+        del pre, trainer, snap
+        torch.cuda.empty_cache()
+
+        # 2. the fresh run, in this process
+        rec = RoundsRecorder()
+        out = io.StringIO()
+        with rec, contextlib.redirect_stdout(out):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            log_dir = liso_cli.main(argv + ["--summary_dir", str(Path(tmp.name) / "fresh")])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = dict(kernels.launches)
+        loop = rec.loop
+        n_val = len(loop.val_dataset)
+        n_train = len(loop.train_dataset_factory(None))
+        chunks = -(-n_train // M_CHUNK)
+        # K1: each train step, each detector mining chunk (rounds 1, 2),
+        # each validate's predict_step (val + val-on-train, 2 validates);
+        # the fused VJP: each train step
+        expect = {**zero, "grid_scatter_max_occ": R_STEPS + 2 * chunks
+                  + 2 * (n_val + n_train), "scatter_max_vjp": R_STEPS}
+        if launches != expect:
+            fail(f"rounds loop launches {launches}, expected {expect}")
+        mined, resets = run_lines(out.getvalue())
+        want_mined = [(s, s // R_SPR) for s in range(0, R_STEPS, R_SPR)]
+        losses = [m["loss/total"] for m in rec.metrics]
+        res = {"phase": "rounds", "configs": " ".join(configs) + " (liso_cli)",
+               "cuts": {" ".join(kv[:-1]): kv[-1] for kv in R_KV},
+               "grid": D_GRID, "n_max": M_PTS, "batch": D_BATCH,
+               "train_frames": n_train, "val_frames": n_val,
+               "points_in_grid": kres[0]["points_in_grid"],
+               "kernel_vs_plain": {"losses": kvp, "rtol": DET_LOSS_RTOL},
+               "run_s": run_s, "launches": launches,
+               "mined_at": mined, "resets": resets,
+               "inits": [{k: i[k] for k in ("step", "round", "seed")}
+                         for i in rec.inits],
+               "rounds": [{**r, "mined_db_run_val_s": v["seconds"]} for r, v in
+                          zip(rec.rounds, [v for v in rec.run_vals
+                                           if not v["validate"]])],
+               "steps": [{"step": t["step"], "wait_ms": t["wait_s"] * 1e3,
+                          "prepare_ms": t["prepare_s"] * 1e3,
+                          "train_step_ms": t["step_s"] * 1e3, "loss": t["loss"]}
+                         for t in loop.step_timings],
+               "validate_s": [v["seconds"] for v in rec.validates],
+               "save_ms": [s["ms"] for s in rec.saves]}
+        if mined != want_mined or resets != [2]:
+            fail(f"mined at {mined} (want {want_mined}), resets {resets} (want [2])")
+        if [(i["step"], i["seed"]) for i in rec.inits] != [(0, seed + 1),
+                                                           (2 * R_SPR, seed + 3)]:
+            fail(f"detector inits {res['inits']}, expected seeds {seed + 1} at "
+                 f"step 0 and {seed + 3} at step {2 * R_SPR}")
+        if len(losses) != R_STEPS or not all(np.isfinite(losses)):
+            fail(f"rounds loop losses {losses}")
+        if rec.rounds[0]["boxes"] < 1:
+            fail("round 0 mined no box: the paste path would not run")
+        if [v["step"] for v in rec.validates] != [R_VAL, R_STEPS]:
+            fail(f"validates at {[v['step'] for v in rec.validates]}")
+        ckpts = Path(log_dir) / "ckpts"
+        steps = sorted(int(p.name) for p in ckpts.iterdir() if p.name.isdigit())
+        if steps != [R_SPR, 2 * R_SPR, R_STEPS]:
+            fail(f"checkpoints at {steps}")
+        count16 = torch.load(ckpts / str(R_SNAP_STEP) / STATE_FILE,
+                             weights_only=True)["optimizer"]["count"]
+        if count16 != 1:
+            fail(f"the step-{R_SNAP_STEP} checkpoint holds AdamW count {count16}, "
+                 "expected 1 (reset at that step)")
+
+        # 3. the reset's weights: init_weights(model, seed + 3) on the CPU
+        cpu = liso_loop.LisoSelfTraining(cfg, lambda db: None, None,
+                                         Path(tmp.name) / "cpu",
+                                         data_cfg=loop.data_cfg, device="cpu")
+        init_weights(cpu.trainer.model, seed + 3)
+        diff = state_equal(rec.inits[1]["model"], cpu.trainer.model.state_dict())
+        if diff:
+            fail(f"the reset's weights differ from init_weights(seed + 3) on the "
+                 f"CPU at {diff[:8]}")
+
+        # 4. the run's first prepared batch: the card against the CPU from
+        # the first init's weights; K1 and the fused VJP held bitwise at its
+        # cells
+        pts, valid, target = rec.batch
+        cpu.trainer.model.load_state_dict(rec.inits[0]["model"])
+        t0 = time.perf_counter()
+        m_cpu = cpu.trainer.train_step(
+            pts.cpu(), valid.cpu(),
+            target.replace(**{f: getattr(target, f).cpu() for f in
+                              ("pos", "dims", "rot", "probs", "velo", "valid",
+                               "class_id", "difficulty")}))
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        card_cpu = {k: (rec.metrics[0][k], float(m_cpu[k])) for k in loss_keys}
+        res["card_vs_cpu"] = {"losses": card_cpu, "rtol": R_CPU_RTOL,
+                              "cpu_step_ms": cpu_ms}
+        if any(abs(a - b) > R_CPU_RTOL * abs(b) for a, b in card_cpu.values()):
+            fail(f"first step's losses, card vs CPU: {card_cpu}")
+        del cpu
+        cells = prepare_pillar_inputs(pts, valid, bev).cell
+        for check, s in ((check_scatter_max, 17), (check_scatter_max_vjp, 18)):
+            check(torch.Generator(device="cuda").manual_seed(s), cells,
+                  bev.num_cells, 64, torch.float32, timed=False)
+        step_ms = [t["step_s"] * 1e3 for t in loop.step_timings]
+        res["run_batch_points_in_grid"] = int((cells < bev.num_cells).sum())
+        res["profiled_step"] = {
+            "launches": counts, "device_ms": dev_ms,
+            "train_step_ms_median": statistics.median(step_ms),
+            "device_busy_share": dev_ms / statistics.median(step_ms),
+            "device_ms_by_family": families(rows)}
+
+        # 5. save and restore: the step-16 checkpoint and the DBs beside it
+        # into a fresh loop, bitwise
+        snap16 = rec.snap
+        rdir = Path(tmp.name) / "restore"
+        shutil.copytree(ckpts / str(R_SNAP_STEP), rdir / "ckpts" / str(R_SNAP_STEP))
+        shutil.copy(ckpts / "format_version", rdir / "ckpts")
+        shutil.copy(Path(log_dir) / "config.yml", rdir / "config.yml")
+        for r in range(3):
+            shutil.copytree(Path(log_dir) / f"mined_round_{r}",
+                            rdir / f"mined_round_{r}")
+        fresh = liso_loop.LisoSelfTraining(cfg, lambda db: None, None,
+                                           Path(tmp.name) / "fresh_loop",
+                                           data_cfg=loop.data_cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = fresh.restore(rdir / "ckpts")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        augm_file = rdir / f"mined_round_{2}" / "augm_db.npy"
+        diff = (state_equal(to_host(fresh.trainer.state_dict()), snap16["state"])
+                + tree_equal(fresh.mined_db, snap16["mined_db"])
+                + tree_equal(np.load(augm_file, allow_pickle=True).item(),
+                             finalize_augm_db(snap16["augm_db"]))
+                + tree_equal(fresh._augm_db_final, load_augm_db(augm_file)))
+        res["save_restore"] = {"step": step, "restore_ms": restore_ms,
+                               "checkpoint_bytes": (ckpts / str(R_SNAP_STEP)
+                                                    / STATE_FILE).stat().st_size,
+                               "bitwise": not diff}
+        if step != R_SNAP_STEP or diff:
+            fail(f"restore of step {R_SNAP_STEP} gave step {step}, differs at "
+                 f"{diff[:8]}")
+        del fresh, loop
+        torch.cuda.empty_cache()
+
+        # 6. the resume, in its own process: step 8's checkpoint and rounds
+        # 0-1's DBs; it continues at step 9 with round_idx 2, mines round 2
+        # and resets at step 16, and saves 16 and 17
+        resume = Path(tmp.name) / "resume"
+        shutil.copytree(ckpts / str(R_SPR), resume / "ckpts" / str(R_SPR))
+        shutil.copy(ckpts / "format_version", resume / "ckpts")
+        shutil.copy(Path(log_dir) / "config.yml", resume / "config.yml")
+        for r in range(2):
+            shutil.copytree(Path(log_dir) / f"mined_round_{r}",
+                            resume / f"mined_round_{r}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "liso_tpu_torch.cli.liso_cli", *argv,
+             "--load_checkpoint", str(resume / "ckpts"),
+             "--summary_dir", str(Path(tmp.name) / "resumed")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        resume_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"the resumed liso_cli exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        r_mined, r_resets = run_lines(proc.stdout)
+        done = [ln for ln in proc.stdout.splitlines() if ln.startswith("done; logs in ")]
+        r_steps = sorted(int(p.name) for p in
+                         (Path(done[-1][len("done; logs in "):]) / "ckpts").iterdir()
+                         if p.name.isdigit()) if done else []
+        res["resume"] = {"wall_s": resume_s, "mined_at": r_mined,
+                         "resets": r_resets, "checkpoints": r_steps}
+        if (f"resuming after step {R_SPR}" not in proc.stdout
+                or r_mined != [m for m in mined if m[0] > R_SPR]
+                or r_resets != [2] or r_steps != [2 * R_SPR, R_STEPS]):
+            fail(f"the resume: {res['resume']}, expected mining {mined[2:]}, "
+                 f"reset [2], checkpoints [16, 17]")
+    finally:
+        tmp.cleanup()
+    res["phase_s"] = time.perf_counter() - t_phase
+    return kres, res
+
+
 def run_path(serve, slim, det, frames, valid, plain=False):
     """fused_forward, then encode + chained fused_streaming steps."""
     import torch
@@ -2575,6 +3007,12 @@ def main() -> int:
     for r in vkres:
         emit({"phase": "kernel", "path": "eval", **r})
         by_name[r["name"]]["eval_shape"] = shape_entry(r)
+    torch.cuda.empty_cache()
+    rkres, rounds = phase_rounds(kernels)
+    emit({**rounds, "nvidia_smi": smi})
+    for r in rkres:
+        emit({"phase": "kernel", "path": "rounds", **r})
+        by_name[r["name"]]["rounds_shape"] = shape_entry(r)
     for r in kres:
         name = r["name"]
         r["launches_by_path"] = {
@@ -2585,7 +3023,8 @@ def main() -> int:
                                 + experiment["export_launches"][name]),
             "mine": (mining["round0"]["launches"][name]
                      + mining["round1"]["launches"][name]),
-            "eval": evaluation["launches"][name]}
+            "eval": evaluation["launches"][name],
+            "rounds": rounds["launches"][name]}
         r["launches"] = sum(r["launches_by_path"].values())
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump({"device": device, "nvidia_smi": smi, "kernels": kres,
@@ -2595,6 +3034,7 @@ def main() -> int:
                    "slim_experiment": experiment,
                    "mining_kernels": mkres, "mining": mining,
                    "eval_kernels": vkres, "eval": evaluation,
+                   "rounds_kernels": rkres, "rounds": rounds,
                    "ptxas": ptxas,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     with open(OUT_DIR / "chip_smoke_profile.txt", "w") as f:
@@ -2634,7 +3074,7 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "kernel_only_ms", "host_ms",
             "library_ms_prezeroed", "train_shape", "detect_train_shape",
-            "slim_experiment_shape", "mine_shape", "eval_shape",
+            "slim_experiment_shape", "mine_shape", "eval_shape", "rounds_shape",
             "second_shape", "decoder_shape", "host_steps_ms",
             "skewed_layout", "slim_step_layout", "serving_step_layout",
             "needed_pairs", "visited_pairs", "visited_over_needed",
@@ -2642,6 +3082,7 @@ def main() -> int:
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
           "slim_experiment_s": experiment["phase_s"],
           "mining_s": mining["phase_s"], "eval_s": evaluation["phase_s"],
+          "rounds_s": rounds["phase_s"],
           "nvidia_smi": smi})
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})
     print(smi, flush=True)

@@ -91,6 +91,51 @@ def build_datasets(cfg, fast_test: bool, target: str = "flow"):
     raise NotImplementedError(source)
 
 
+def make_train_dataset(cfg, dcfg, fast_test: bool, mined_db=None):
+    """Rebuild the train dataset (optionally with a mined-box DB injected) —
+    the loader-rebuild step of the reference rounds loop
+    (liso_cli.py:317-327). No `augmentation` is passed, as in the JAX
+    package, so the global SE(2) jitter stays off."""
+    source = str(cfg.data.source)
+    if source in ("toy", "synthetic"):
+        from liso_tpu_torch.data.synthetic import SyntheticDataset
+
+        n_frames = 8 if fast_test else 64
+        return SyntheticDataset(
+            dcfg, n_frames=n_frames, seed=0, mined_boxes_db=mined_db
+        )
+    if source == "kitti":
+        from liso_tpu_torch.data.kitti import KittiRawDataset
+
+        return KittiRawDataset(
+            dcfg, Path(cfg.data.paths.kitti.local), mined_boxes_db=mined_db
+        )
+    if source == "nuscenes":
+        from liso_tpu_torch.data.nuscenes import NuscenesDataset
+
+        return NuscenesDataset(
+            dcfg, Path(cfg.data.paths.nuscenes.local), mode="train",
+            mined_boxes_db=mined_db,
+        )
+    if source == "waymo":
+        from liso_tpu_torch.data.waymo import WaymoDataset
+
+        return WaymoDataset(
+            dcfg, Path(cfg.data.paths.waymo.local),
+            downsample_factor=int(
+                getattr(cfg.data, "waymo_downsample_factor", 5) or 5
+            ),
+            mined_boxes_db=mined_db,
+        )
+    if source == "av2":
+        from liso_tpu_torch.data.waymo import AV2Dataset
+
+        return AV2Dataset(
+            dcfg, Path(cfg.data.paths.av2.local), mined_boxes_db=mined_db
+        )
+    raise NotImplementedError(source)
+
+
 def main(argv=None):
     args = parse_cli_args(argv)
     if args.inference_only and not args.load_checkpoint:

@@ -21,8 +21,9 @@ Per reference semantics kept:
     expansion (:590-675);
   * mined-box injection with confidence filter, probs -> 1.0 (:559-588);
   * global SE(2) augmentation applied consistently to points / odometry /
-    flow / boxes (:1291-1433) — liso_tpu/data/augmentation.py, passed in
-    as the `augmentation` callable (not ported yet).
+    flow / boxes (:1291-1433) — data/augmentation.py's
+    `augment_sample_content`, passed in as the `augmentation` callable
+    (slim_cli.make_train_dataset passes none, as the JAX package's does).
 """
 from __future__ import annotations
 

@@ -163,4 +163,7 @@ def init_weights(module: nn.Module, seed: int, small_std=()) -> nn.Module:
             elif isinstance(m, (nn.GroupNorm, BatchNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+                if isinstance(m, BatchNorm):
+                    m.running_mean.zero_()
+                    m.running_var.fill_(1.0)
     return module

@@ -12,7 +12,8 @@ AdamW update with optax's semantics under the OneCycle schedule.
 pre-NMS cap and rotated NMS. Both run in fp32, as the JAX trainer does:
 TF32 is off for cuDNN convolutions and cuBLAS matmuls while a step runs,
 and the caller's settings are put back after it. `state_dict()` /
-`load_state_dict()` carry the train state through `utils/checkpoint.py`.
+`load_state_dict()` carry the train state through `utils/checkpoint.py`;
+`reset_optimizer()` starts AdamW and the schedule again.
 """
 from __future__ import annotations
 
@@ -102,6 +103,15 @@ class DetectorTrainer:
                     mine[k].copy_(v)
         self.count = int(opt["count"])
         self.step = int(state["step"])
+
+    def reset_optimizer(self) -> None:
+        """Zero AdamW's moments and count and the step, keeping the weights:
+        the OneCycle schedule starts again (a round's reset, a finetune)."""
+        with torch.no_grad():
+            for m in (*self.mu.values(), *self.nu.values()):
+                m.zero_()
+        self.count = 0
+        self.step = 0
 
     def _loss(self, points, valid, target_boxes: Boxes, ignore_mask,
               plain: bool):

@@ -1,21 +1,28 @@
-"""LISO self-training rounds: mining and validation (port of those parts
-of liso_tpu/train/liso_loop.py).
+"""LISO self-training rounds orchestration (port of
+liso_tpu/train/liso_loop.py).
 
-Behavioral reference: liso/kabsch/liso_cli.py:58-723. In every round the
-current detector re-mines the box DB and the augmentation DB over whole
-drive sequences: round 0 with the flow-cluster bootstrap, later rounds
-with the trained detector. `LisoSelfTraining.mine(dataset)` is that pass;
-`validate(step)` evaluates the detector through `eval.run_val`. The rest of
-the rounds loop (`run`, `save`, `restore`, the batch assembly) comes with
-ROADMAP section A item 2 and raises NotImplementedError until then.
+Behavioral reference: liso/kabsch/liso_cli.py:58-723 (main loop). Every
+`steps_per_round` steps (and at step 0) the current detector — round 0: the
+flow-cluster bootstrap — re-mines the box DB and augmentation DB over whole
+drive sequences (`mine`), the train dataset is rebuilt with the new DBs,
+and the network and optimizer are optionally reset
+(drop_net_weights_every_nth_round, liso_cli.py:166-178,687-696). Training
+itself is the detector's train step on the mined boxes plus boxes pasted
+from the augmentation DB on the host (`_prepare_batch`). `validate`
+evaluates the detector through `eval.run_val`; `save` / `restore` carry
+the train state and the newest mined DBs.
 
 The detector and every device program run on the card unless the caller
 passes `device="cpu"`; without CUDA the constructor raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import pickle
 import time
+import zipfile
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
@@ -23,19 +30,23 @@ import numpy as np
 import torch
 import yaml
 
+from liso_tpu_torch.data.augmentation import BoxAugmCfg, paste_boxes_into_sample
 from liso_tpu_torch.data.dataset import DataCfg, LidarDataset, pad_to
 from liso_tpu_torch.data.pipeline import Prefetcher
-from liso_tpu_torch.eval.run_val import run_val
+from liso_tpu_torch.eval.run_val import mined_db_predictor, run_val
 from liso_tpu_torch.models.box_decode import BoxPredictionCfg
 from liso_tpu_torch.models.flow_cluster_detector import (
     FlowClusterCfg,
     detect_boxes_from_flow,
 )
+from liso_tpu_torch.models.layers import init_weights
 from liso_tpu_torch.ops.bev import point_cell_ids
 from liso_tpu_torch.ops.boxes import Boxes
 from liso_tpu_torch.serve import resolve_device
 from liso_tpu_torch.tracker.dbs import (
     empty_augm_db,
+    finalize_augm_db,
+    load_augm_db,
     load_mined_boxes_db,
     merge_finalized_augm_dbs,
     save_augm_db,
@@ -49,11 +60,21 @@ from liso_tpu_torch.tracker.mining import (
     union_proposals,
 )
 from liso_tpu_torch.train.detector_train import DetectorTrainer
+from liso_tpu_torch.utils.checkpoint import (
+    check_checkpoint_config_sanity,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from liso_tpu_torch.utils.tb import TBFactory
 
-ITEM_2 = "ROADMAP section A item 2 (the rounds loop) is not ported yet"
 ITEM_3 = ("ROADMAP section A item 3 (other detectors and the non-baseline "
           "CenterPoint) is not ported yet")
+# what reading a missing or half-written DB file raises: the JAX loop
+# catches only the first two, so a truncated tracked.npz (BadZipFile) or
+# augm_db.npy (UnpicklingError) stops its resume
+_DB_READ_ERRORS = (OSError, ValueError, EOFError, zipfile.BadZipFile,
+                   pickle.UnpicklingError)
 
 
 def frames_from_dataset(dataset: LidarDataset, idxs: List[int]) -> List[Frame]:
@@ -110,6 +131,18 @@ def merge_mined_dbs(dbs: List[Dict[str, dict]]) -> Dict[str, dict]:
     for db in dbs:
         out.update(db)
     return out
+
+
+@contextlib.contextmanager
+def one_pass(loader: Prefetcher):
+    """One pass's iterator over `loader`; on exit the iterator (its producer
+    thread) and then the loader's worker pool are stopped."""
+    it = iter(loader)
+    try:
+        yield it
+    finally:
+        it.close()
+        loader.close()
 
 
 def detector_predictor(det: DetectorTrainer, device):
@@ -194,15 +227,26 @@ class LisoSelfTraining:
             activations=dict(bp.activations),
         )
         self.trainer = self._make_trainer()
-        # the detector to mine with in rounds >= 1: a DetectorTrainer that
-        # holds its train state (in JAX the train state itself); None until
-        # the rounds loop trains one or the caller loads one into `trainer`
+        # the detector that trains and mines in rounds >= 1: `trainer`,
+        # which holds its train state (in JAX the train state itself); None
+        # until the first step, and again from a weight reset to the next
+        # step (_init_detector)
         self.state: Optional[DetectorTrainer] = None
         self.round_idx = 0
         self.mined_db: Optional[dict] = None
         self.augm_db: Optional[dict] = None
         self._augm_db_final: Optional[dict] = None
         self.rng = np.random.RandomState(int(cfg.seed))
+        boxes = cfg.data.augmentation.boxes
+        self.box_augm_cfg = BoxAugmCfg(
+            max_num_objs=int(boxes.max_num_objs),
+            use_raydrop_augm=bool(boxes.use_raydrop_augm),
+            max_scale_delta=float(boxes.max_scale_delta),
+        )
+        # per train step of `run`: seconds waiting on the loader, in
+        # _prepare_batch (paste and copy) and in the step to its loss on the
+        # host, and the loss
+        self.step_timings: List[dict] = []
 
     def _make_trainer(self) -> DetectorTrainer:
         """The baseline CenterPoint's trainer. OneCycle spans the whole
@@ -447,6 +491,50 @@ class LisoSelfTraining:
         print(f"round {self.round_idx}: mined {n_boxes} boxes over {n_seqs} "
               f"sequences in {time.time() - t0:.0f}s")
 
+    def _assert_replicas_in_sync(self, step: int, poll_s: float = 1.0,
+                                 timeout_s: float = 600.0) -> None:
+        """Multi-worker training is lock-step replicated: every worker
+        trains the same model on the same batches, so the replicas'
+        parameters must stay bit-identical. Each worker publishes a sha256
+        of its detector's parameters (by name, in sorted order) under the
+        shared log_dir and compares it with every peer's; a mismatch raises
+        RuntimeError (divergent replicas would merge boxes of different
+        detectors into the next round's DB), a peer that publishes nothing
+        within `timeout_s` TimeoutError. A no-op with one worker."""
+        if self.world_size <= 1 or self.state is None:
+            return
+        h = hashlib.sha256()
+        params = self.state.params
+        for name in sorted(params):
+            h.update(np.ascontiguousarray(
+                params[name].detach().cpu().numpy()).tobytes())
+        digest = h.hexdigest()
+        out = self.log_dir / f"param_sync_step_{step}"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"digest_worker{self.worker_id}").write_text(digest)
+        deadline = time.time() + timeout_s
+        peers = {}
+        missing = set(range(self.world_size)) - {self.worker_id}
+        while missing:
+            for i in list(missing):
+                f = out / f"digest_worker{i}"
+                if f.exists():
+                    peers[i] = f.read_text()
+                    missing.discard(i)
+            if missing:
+                if time.time() > deadline:
+                    raise TimeoutError(
+                        f"param sync at step {step}: workers "
+                        f"{sorted(missing)} never published digests")
+                time.sleep(poll_s)
+        bad = {i: d for i, d in peers.items() if d != digest}
+        if bad:
+            raise RuntimeError(
+                f"replica divergence at step {step}: worker {self.worker_id} "
+                f"params digest {digest[:12]} != workers "
+                f"{ {i: d[:12] for i, d in bad.items()} } — lock-step "
+                f"training requires bit-identical replicas")
+
     def _gather_worker_dbs(self, out: Path, world_size: int,
                            poll_s: float = 2.0, timeout_s: float = 3600.0):
         """Wait for every worker's `.done_worker{i}` marker under `out`,
@@ -478,7 +566,6 @@ class LisoSelfTraining:
                                grid_hw=(256, 256), seq_idxs=None):
         """BEV images of one sequence with the mined boxes drawn (the TB GIF
         and the mining CLI's); seq_idxs defaults to the first sequence."""
-        from liso_tpu_torch.eval.run_val import mined_db_predictor
         from liso_tpu_torch.visu.bbox_image import render_frame
 
         seq = (seq_idxs if seq_idxs is not None
@@ -506,6 +593,241 @@ class LisoSelfTraining:
             return [list(range(len(dataset)))]
 
     # ------------------------------------------------------------------
+    def _prepare_batch(self, batch: dict):
+        """Copy-paste augmentation and the target boxes on the host (numpy;
+        `rng` is drawn as in the JAX package): boxes from the augmentation
+        DB, stacked once per round, are pasted into each cloud and written
+        into the free target slots. Then one move to the trainer's device,
+        through pinned host memory on cuda. Returns (points, valid, target
+        Boxes)."""
+        pcl = np.array(batch["pcl_t0"])
+        valid = np.array(batch["valid_t0"])
+        targets = {k: np.array(v) for k, v in batch["target_boxes"].items()}
+        has_augm = self._augm_db_final is not None or (
+            self.augm_db is not None and len(self.augm_db["boxes"]) > 0
+        )
+        if has_augm and self.cfg.data.augmentation.boxes.active:
+            if self._augm_db_final is None:  # stack once per mining round
+                self._augm_db_final = finalize_augm_db(self.augm_db)
+            db = self._augm_db_final
+            if len(db["boxes"].get("pos", ())) == 0:
+                db = None  # resume-loaded DB fully filtered: nothing to paste
+        else:
+            db = None
+        if db is not None:
+            b, n_max = valid.shape
+            for i in range(b):
+                base = pcl[i][valid[i]]
+                rows = np.zeros(len(base), np.int64)
+                new_pcl, _, pasted = paste_boxes_into_sample(
+                    base, rows, db, self.rng, self.bev.bev_range_m,
+                    self.box_augm_cfg,
+                )
+                p_padded, v_padded = pad_to(new_pcl, n_max)
+                pcl[i], valid[i] = p_padded, v_padded
+                if len(pasted["pos"]):
+                    k_slots = targets["pos"].shape[1]
+                    kv = int(targets["valid"][i].sum())
+                    n_add = min(len(pasted["pos"]), k_slots - kv)
+                    for key in ("pos", "dims", "rot", "probs", "velo"):
+                        if key in targets:
+                            targets[key][i, kv : kv + n_add] = pasted[key][:n_add]
+                    targets["valid"][i, kv : kv + n_add] = True
+        dev = self.device
+        pin = dev.type == "cuda"
+
+        def put(a):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return (t.pin_memory() if pin else t).to(dev, non_blocking=True)
+
+        boxes = Boxes(
+            pos=put(targets["pos"]),
+            dims=put(targets["dims"]),
+            rot=put(targets["rot"]),
+            probs=put(targets["probs"]),
+            velo=put(targets["velo"]) if "velo" in targets else None,
+            valid=put(targets["valid"]),
+        ).with_defaults()
+        return put(pcl), put(valid), boxes
+
+    def _init_detector(self, seed: int) -> None:
+        """A fresh detector, at the first step and after each weight reset:
+        weights drawn by init_weights(model, seed) with batch-norm
+        statistics (0, 1), AdamW's moments, count and step zeroed (so the
+        OneCycle schedule starts again), on the trainer's device. The JAX
+        loop draws its state from PRNGKey(seed) here; the two random
+        streams differ, so the CPU parity tests patch this one method to
+        load JAX's state for the seed."""
+        init_weights(self.trainer.model, seed)
+        self.trainer.reset_optimizer()
+        self.state = self.trainer
+
+    def _train_loader(self, dataset: LidarDataset) -> Prefetcher:
+        """A round's loader; like the JAX one it starts at seed 0 in every
+        round, so each round replays one sample order."""
+        return Prefetcher(
+            dataset,
+            batch_size=int(self.cfg.data.batch_size),
+            num_workers=int(self.cfg.data.num_workers) or 1,
+        )
+
+    def run(self, total_steps: Optional[int] = None, fast_test: bool = False,
+            start_step: int = 0):
+        """The rounds loop up to `total_steps` (default
+        optimization.num_training_steps); returns the total loss of every
+        step. start_step > 0 resumes mid-run (liso_cli.py:742-789) from the
+        DBs and state that `restore` loaded: round_idx becomes the one a
+        fresh run has there, so mining starts again at the next round
+        boundary. Only worker 0 validates and saves."""
+        opt = self.cfg.optimization
+        total_steps = total_steps or int(opt.num_training_steps)
+        steps_per_round = (
+            int(opt.rounds.steps_per_round) if opt.rounds.active else total_steps
+        )
+        drop_every = int(opt.rounds.drop_net_weights_every_nth_round)
+        val_every = int(self.cfg.validation.val_every_n_steps)
+        save_every = int(self.cfg.checkpoint.save_model_every)
+
+        dataset = self.train_dataset_factory(None)
+        loader = None
+        train_iter = None
+        metrics_hist = []
+
+        def close_loader():
+            # the iterator's producer thread first, then the worker pool:
+            # one live loader at a time, none left behind
+            if train_iter is not None:
+                train_iter.close()
+            if loader is not None:
+                loader.close()
+
+        try:
+            if start_step:
+                self.round_idx = -(-start_step // steps_per_round)
+                dataset = self.train_dataset_factory(self.mined_db)
+                loader = self._train_loader(dataset)
+                train_iter = iter(loader)
+
+            for step in range(start_step, total_steps):
+                if step % steps_per_round == 0:
+                    # replicas must agree before mining, or the merged DB
+                    # mixes boxes of different detectors
+                    self._assert_replicas_in_sync(step)
+                    close_loader()
+                    loader = train_iter = None
+                    print(f"step {step}: mining round {self.round_idx}")
+                    self.mine(dataset)
+                    if self.mined_db is not None and self.val_dataset is not None:
+                        val_loader = Prefetcher(
+                            self.val_dataset, batch_size=1, shuffle=False,
+                            num_workers=2,
+                        )
+                        with one_pass(val_loader) as batches:
+                            mined_metrics = run_val(
+                                batches, mined_db_predictor(self.mined_db),
+                                max_batches=4 if fast_test else None,
+                                device=self.device,
+                            )
+                        self.tb("val", "mined_boxes/").add_scalars(
+                            {k: v for k, v in mined_metrics.items()
+                             if k.startswith(("mAP", "AP_overall_overall"))},
+                            step,
+                        )
+                    dataset = self.train_dataset_factory(self.mined_db)
+                    loader = self._train_loader(dataset)
+                    train_iter = iter(loader)
+                    if (
+                        self.round_idx > 0
+                        and drop_every > 0
+                        and self.round_idx % drop_every == 0
+                    ):
+                        print(f"round {self.round_idx}: resetting net + optimizer")
+                        self.state = None
+                    self.round_idx += 1
+
+                t_wait0 = time.perf_counter()
+                try:
+                    batch = next(train_iter)
+                except StopIteration:
+                    train_iter = iter(loader)
+                    batch = next(train_iter)
+                t_prep0 = time.perf_counter()
+                pts, valid, target = self._prepare_batch(batch)
+                t_prep1 = time.perf_counter()
+                if self.state is None:
+                    # the seed is taken after round_idx moved on, as in JAX
+                    self._init_detector(int(self.cfg.seed) + self.round_idx)
+                t_fwd0 = time.perf_counter()
+                metrics = self.state.train_step(pts, valid, target)
+                loss = float(metrics["loss/total"])  # waits for the step
+                t_end = time.perf_counter()
+                metrics_hist.append(loss)
+                self.step_timings.append({
+                    "step": step, "wait_s": t_prep0 - t_wait0,
+                    "prepare_s": t_prep1 - t_prep0, "step_s": t_end - t_fwd0,
+                    "loss": loss})
+                self.tb.global_step = step
+                if step % int(self.cfg.logging.log_interval) == 0:
+                    self.tb("train", "loss/").add_scalars(
+                        {k: float(v) for k, v in metrics.items()}, step)
+                    # per-step wall-clock timers (liso_cli.py:621-633)
+                    wt = self.tb("train", "timing/")
+                    wt.add_scalar("dataloading_s", t_prep1 - t_wait0, step)
+                    wt.add_scalar("fwd_bwd_s", t_end - t_fwd0, step)
+
+                # replicas train in lock-step, so only worker 0 validates
+                # and saves
+                if (val_every and step > 0 and step % val_every == 0
+                        and self.worker_id == 0):
+                    self.validate(step, fast_test)
+                if (save_every and step > 0 and step % save_every == 0
+                        and self.worker_id == 0):
+                    self.save(step)
+        finally:
+            close_loader()
+        self._assert_replicas_in_sync(total_steps)
+        if self.state is not None and self.worker_id == 0:
+            self.save(total_steps)
+        return metrics_hist
+
+    def save(self, step: int):
+        """The detector's train state {model, optimizer, step} as
+        ckpts/<step> (liso_cli.py:726-739); the schedule is a function of
+        the restored count, so nothing else is kept."""
+        save_checkpoint(self.log_dir / "ckpts", step, self.state)
+
+    def restore(self, ckpt_dir) -> int:
+        """liso_cli.py:742-789 resume: load the newest step under
+        `ckpt_dir` into the trainer, and the newest complete mined and
+        augmentation DBs saved beside it (a round directory that an
+        interrupted `mine` left half-written is skipped). Returns the step.
+        Unlike the JAX loop, which builds a state template from example
+        points, it takes none: the trainer exists already."""
+        ckpt_dir = Path(ckpt_dir)
+        check_checkpoint_config_sanity(ckpt_dir, self.cfg)
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+        restore_checkpoint(ckpt_dir, step, self.trainer)
+        self.state = self.trainer
+        rounds = sorted(
+            ckpt_dir.parent.glob("mined_round_*"),
+            key=lambda p: int(p.name.rsplit("_", 1)[-1]),
+        )
+        for rd in reversed(rounds):
+            try:
+                self.mined_db = load_mined_boxes_db(rd / "tracked.npz")
+            except _DB_READ_ERRORS:
+                continue
+            try:
+                # loaded DBs are already in the finalized (stacked) form
+                self._augm_db_final = load_augm_db(rd / "augm_db.npy")
+            except _DB_READ_ERRORS:
+                pass
+            break
+        return step
+
+    # ------------------------------------------------------------------
     def validate(self, step: int, fast_test: bool = False):
         """Evaluate the detector in `state` on the val set through run_val
         (batch 1, as liso_cli.py:665-684), then, with
@@ -523,11 +845,12 @@ class LisoSelfTraining:
         max_batches = 4 if fast_test else (num_val or None)
         dev = self.device
         predict = detector_predictor(self.state, dev)
-        metrics = run_val(
-            iter(loader), predict, max_batches=max_batches,
-            writer=self.tb("val", "detector/"), global_step=step,
-            bev_range_m=self.bev.bev_range_m, device=dev,
-        )
+        with one_pass(loader) as batches:
+            metrics = run_val(
+                batches, predict, max_batches=max_batches,
+                writer=self.tb("val", "detector/"), global_step=step,
+                bev_range_m=self.bev.bev_range_m, device=dev,
+            )
         self.tb("val", "detector/").add_scalars(
             {k: v for k, v in metrics.items()
              if k.startswith(("mAP", "AP_overall_overall", "ATE", "AOE"))},
@@ -544,13 +867,14 @@ class LisoSelfTraining:
             vot_loader = Prefetcher(
                 vot_ds, batch_size=1, shuffle=False, num_workers=2
             )
-            vot_metrics = run_val(
-                iter(vot_loader), predict,
-                max_batches=4 if fast_test else num_vot,
-                writer=self.tb("val_on_train", "detector/"),
-                global_step=step, bev_range_m=self.bev.bev_range_m,
-                device=dev,
-            )
+            with one_pass(vot_loader) as batches:
+                vot_metrics = run_val(
+                    batches, predict,
+                    max_batches=4 if fast_test else num_vot,
+                    writer=self.tb("val_on_train", "detector/"),
+                    global_step=step, bev_range_m=self.bev.bev_range_m,
+                    device=dev,
+                )
             self.tb("val_on_train", "detector/").add_scalars(
                 {k: v for k, v in vot_metrics.items()
                  if k.startswith(("mAP", "AP_overall_overall", "ATE", "AOE"))},
@@ -561,20 +885,6 @@ class LisoSelfTraining:
                  if k.startswith("mAP")}
             )
         return metrics
-
-    # ------------------------------------------------------------------
-    # the rest of the rounds loop: ROADMAP section A item 2
-    def run(self, *args, **kwargs):
-        raise NotImplementedError(f"LisoSelfTraining.run: {ITEM_2}")
-
-    def save(self, *args, **kwargs):
-        raise NotImplementedError(f"LisoSelfTraining.save: {ITEM_2}")
-
-    def restore(self, *args, **kwargs):
-        raise NotImplementedError(f"LisoSelfTraining.restore: {ITEM_2}")
-
-    def _prepare_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"LisoSelfTraining._prepare_batch: {ITEM_2}")
 
 
 def _sample(boxes: Boxes, j: int) -> Boxes:

@@ -51,6 +51,9 @@ def gen():
         (8, 65536, 512 * 512, 64, torch.float32, "uniform"),
         # evaluation: predict_step at batch 1 (run_val, validate, eval_cli)
         (1, 65536, 512 * 512, 64, torch.float32, "uniform"),
+        # the rounds loop's train step: batch 2 at n_max 65536, fp32 C = 64
+        # over 512 x 512 cells
+        (2, 65536, 512 * 512, 64, torch.float32, "uniform"),
     ],
 )
 def test_grid_scatter_max_occ_bitwise(gen, b, n, nc, c, dtype, layout):
@@ -229,6 +232,9 @@ def test_scatter_max_vjp_bitwise(gen):
         (2, 32768, 512 * 512, 64, torch.float32, 32768, False),
         # the SLIM experiment's fp32 step: 33448 of 65536 points in the grid
         (1, 65536, 846400, 64, torch.float32, 33448, False),
+        # the rounds loop's train step: batch 2 at n_max 65536 over 512 x 512
+        # cells, about 3500 real points of each padded synthetic frame
+        (2, 65536, 512 * 512, 64, torch.float32, 3500, False),
         # 8-byte vectors (rows not a multiple of 16 bytes), -0.0, +0.0, NaN
         (2, 4096, 3000, 4, torch.bfloat16, 3000, True),
         (2, 4096, 3000, 12, torch.bfloat16, 4096, True),

@@ -137,6 +137,24 @@ Phases, each printing JSON lines:
                DB's run_val seconds, per step _prepare_batch and train-step
                ms and the loss, validate seconds, save and restore ms, the
                resume's wall time, the step's device busy share.
+  11. detectors - the other detectors, each network's preset at
+               `bev_100m_512 <net> liso` (transfusion, pointpillars,
+               pointrcnn, and centerpoint with use_baseline_parameters
+               False), its trainer built by LisoSelfTraining._make_trainer,
+               on a batch of the rounds cell's drive from _prepare_batch
+               (batch 2, n_max 65536): K1 and the fused VJP held bitwise
+               and timed at its cells; per network one step kernels vs
+               plain (cuDNN deterministic, every loss term within
+               DET_LOSS_RTOL), the first step card vs the port on the CPU
+               from the same state (DT_CPU_TOL), DT_STEPS timed steps after
+               DT_WARMUP (median, max, the Hungarian stage's host ms, a
+               profiled step's device busy share and launches) and
+               DT_PREDICTS timed predict_step calls, whose kept boxes must
+               equal the plain run's within DET_BOX_ATOL; then `liso_cli -c
+               bev_100m_512 transfusion liso` in this process, cut in step
+               counts (DT_CLI_KV: mining at 0, 4, 8, the reset at 8, a
+               validate at 8 and at the end, saves at 4, 8, 9), with its
+               seconds by stage.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. A failed check, or any exception, prints one
 line {"phase": "failed", "check": "<function>:<line>", "message": "..."}
@@ -211,6 +229,32 @@ R_KV = [["optimization", "rounds", "steps_per_round", str(R_SPR)],
         ["optimization", "num_training_steps", str(R_STEPS)],
         ["checkpoint", "save_model_every", str(R_SPR)],
         ["validation", "val_every_n_steps", str(R_VAL)]]
+# The other detectors: each network's preset at bev_100m_512 + liso (the
+# centerpoint one with use_baseline_parameters False), its trainer built by
+# LisoSelfTraining._make_trainer, on a batch of the rounds cell's drive as
+# _prepare_batch gives it (batch 2, n_max 65536): DT_WARMUP + DT_STEPS
+# steps, DT_PREDICTS predict_step calls. Then `liso_cli -c bev_100m_512
+# transfusion liso` cut in step counts only (DT_CLI_KV): mining at 0, 4
+# and 8, the reset at 8, a validate at 8 (and liso_cli's at the end),
+# saves at 4, 8 and 9.
+DT_CONFIGS = (
+    ("transfusion", "transfusion", []),
+    ("pointpillars", "pointpillars", []),
+    ("pointrcnn", "pointrcnn", []),
+    ("centerpoint_non_baseline", "centerpoint",
+     [["network", "centerpoint", "use_baseline_parameters", "False"]]),
+)
+DT_WARMUP, DT_STEPS, DT_PREDICTS = 2, 8, 10
+# The first step, card against the port on the CPU: every loss term within
+# DT_CPU_TOL, relative for a term of magnitude 1 or more and absolute below
+# (a small loss such as PointPillars' direction CE, 0.29, is a log-softmax
+# near certainty: its error is absolute, about that of the logits)
+DT_CPU_TOL = 1e-4
+DT_SPR, DT_TOTAL, DT_VAL = 4, 9, 8
+DT_CLI_KV = [["optimization", "rounds", "steps_per_round", str(DT_SPR)],
+             ["optimization", "num_training_steps", str(DT_TOTAL)],
+             ["checkpoint", "save_model_every", str(DT_SPR)],
+             ["validation", "val_every_n_steps", str(DT_VAL)]]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -271,13 +315,14 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def kernel_only_ms(fn, kernel, reps=20, sessions=3):
+def kernel_only_ms(fn, kernel, reps=20, sessions=6):
     """Mean device ms of one launch of the kernel whose name holds
     `kernel`, over the launches torch.profiler records in `reps` calls of
     `fn` (it may drop some of a run's launches): the kernel alone, without
     the wrapper's host time that CUDA-event timing of a short call holds.
     A profiler session that records no launch at all (one did, of 20 K2
-    calls, on an H100) is repeated, up to `sessions` in all."""
+    calls, on an H100; three in a row did, of K4's, in one whole run) is
+    repeated, up to `sessions` in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1431,9 +1476,9 @@ def state_equal(a, b) -> list:
 
 def confirm_launches(fn, expect, what):
     """profile_window(fn), whose launch counts must equal `expect`; a
-    profiler session that drops launches is repeated once."""
+    profiler session that drops launches is repeated, up to 3 in all."""
     seen = []
-    for _ in range(2):
+    for _ in range(3):
         prof = profile_window(fn)
         if prof[0] == expect:
             return prof
@@ -2776,6 +2821,270 @@ def phase_rounds(kernels):
     return kres, res
 
 
+def phase_detectors(kernels):
+    """The other detectors (TransFusion, PointPillars, PointRCNN, the
+    non-baseline CenterPoint) at full width, each from its preset through
+    LisoSelfTraining._make_trainer; then `liso_cli -c bev_100m_512
+    transfusion liso` cut in step counts (DT_CLI_KV)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.cli import liso_cli
+    from liso_tpu_torch.cli.common import DEFAULT_CFG
+    from liso_tpu_torch.cli.slim_cli import build_datasets, make_train_dataset
+    from liso_tpu_torch.data.pipeline import Prefetcher
+    from liso_tpu_torch.losses import hungarian_loss
+    from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
+    from liso_tpu_torch.train import liso_loop
+    from liso_tpu_torch.utils.config import parse_config
+
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in kernels.launches}
+    per_step = {**zero, "grid_scatter_max_occ": 1, "scatter_max_vjp": 1}
+    box_fields = ("pos", "dims", "rot", "probs")
+    tmp = tempfile.TemporaryDirectory(prefix="detectors_", dir=OUT_DIR)
+    host_ms_log = []
+    assign = hungarian_loss.assign_host
+
+    def timed_assign(cost):  # the Hungarian stage's scipy call, on the host
+        t0 = time.perf_counter()
+        out = assign(cost)
+        host_ms_log.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    res = {"phase": "detectors", "grid": D_GRID, "n_max": M_PTS,
+           "batch": D_BATCH, "dtype": "fp32 (TF32 off by the trainers)",
+           "warmup_steps": DT_WARMUP, "steps": DT_STEPS,
+           "predicts": DT_PREDICTS, "configs": {}}
+    launches = dict(zero)
+    try:
+        hungarian_loss.assign_host = timed_assign
+        # the phase's first batch, as _prepare_batch gives a loop's first
+        # step (no DB yet): K1 and the fused VJP held bitwise and timed at
+        # its cells, before any of the phase's fork workers run
+        cfgs = {name: parse_config(DEFAULT_CFG, ["bev_100m_512", net, "liso"], kv)
+                for name, net, kv in DT_CONFIGS}
+        cfg0 = cfgs["transfusion"]
+        ds_cfg = build_datasets(cfg0, False, target="object")[0].cfg
+        seed = int(cfg0.seed)
+        loops = {name: liso_loop.LisoSelfTraining(
+            cfg, lambda db: None, None, Path(tmp.name) / name, data_cfg=ds_cfg,
+            device="cuda") for name, cfg in cfgs.items()}
+        loader = Prefetcher(make_train_dataset(cfg0, ds_cfg, False),
+                            batch_size=D_BATCH, num_workers=1)
+        it = iter(loader)
+        pts, valid, target = loops["transfusion"]._prepare_batch(next(it))
+        it.close()
+        loader.close()
+        bev = loops["transfusion"].bev
+        cells = prepare_pillar_inputs(pts, valid, bev).cell
+        kres = [check(torch.Generator(device="cuda").manual_seed(s), cells,
+                      bev.num_cells, 64, torch.float32)
+                for check, s in ((check_scatter_max, 21), (check_scatter_max_vjp, 22))]
+        res["points_in_grid"] = kres[0]["points_in_grid"]
+        res["target_boxes"] = int(target.valid.sum())
+
+        for name, net, kv in DT_CONFIGS:
+            loop = loops.pop(name)
+            loop._init_detector(seed + 1)
+            trainer = loop.trainer
+            r = {"configs": f"bev_100m_512 {net} liso"
+                 + "".join(f" -kv {' '.join(x)}" for x in kv),
+                 "trainer": type(trainer).__name__}
+            state0 = to_host(trainer.state_dict())
+            snap = snapshot(trainer, ("mu", "nu", "step", "count"))
+            # (b) one step with the kernels and through the plain versions,
+            # cuDNN deterministic
+            saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+            try:
+                mk = trainer.train_step(pts, valid, target)
+                restore(trainer, snap)
+                kernels.reset_launches()
+                mp = trainer.train_step(pts, valid, target, plain=True)
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+            if any(kernels.launches.values()):
+                fail(f"{name}: the plain step launched kernels: "
+                     f"{dict(kernels.launches)}")
+            keys = sorted(k for k in mk if k.startswith("loss/"))
+            kvp = {k: (float(mk[k]), float(mp[k])) for k in keys}
+            r["kernel_vs_plain"] = {"losses": kvp, "rtol": DET_LOSS_RTOL}
+            if set(mk) != set(mp) or any(
+                    not abs(a - b) <= DET_LOSS_RTOL * abs(b) for a, b in kvp.values()):
+                fail(f"{name}: a step, kernels vs plain: {kvp}")
+            # (c) the first step on the CPU from the same state
+            cpu = liso_loop.LisoSelfTraining(
+                cfgs[name], lambda db: None, None, Path(tmp.name) / f"{name}_cpu",
+                data_cfg=ds_cfg, device="cpu").trainer
+            cpu.load_state_dict(state0)
+            t0 = time.perf_counter()
+            m_cpu = cpu.train_step(
+                pts.cpu(), valid.cpu(),
+                target.replace(**{f: getattr(target, f).cpu() for f in
+                                  ("pos", "dims", "rot", "probs", "velo", "valid",
+                                   "class_id", "difficulty")}))
+            card_cpu = {k: (float(mk[k]), float(m_cpu[k])) for k in keys}
+            r["card_vs_cpu"] = {"losses": card_cpu, "tol": DT_CPU_TOL,
+                                "cpu_step_ms": (time.perf_counter() - t0) * 1e3}
+            del cpu
+            if any(not abs(a - b) <= DT_CPU_TOL * max(1.0, abs(b))
+                   for a, b in card_cpu.values()):
+                fail(f"{name}: first step, card vs CPU: {card_cpu}")
+
+            # (d) timed steps from the initial state, the Hungarian host
+            # stage timed inside them
+            restore(trainer, snap)
+            for _ in range(DT_WARMUP):
+                trainer.train_step(pts, valid, target)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            host_ms_log.clear()
+            step_ms, losses = [], []
+            for _ in range(DT_STEPS):
+                t0 = time.perf_counter()
+                m = trainer.train_step(pts, valid, target)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss/total"]))
+            step_launches = dict(kernels.launches)
+            hung_ms = list(host_ms_log)
+            if step_launches != {k: v * DT_STEPS for k, v in per_step.items()}:
+                fail(f"{name}: train step launches {step_launches}")
+            if not all(np.isfinite(losses)):
+                fail(f"{name}: train losses {losses}")
+            counts, dev_ms, rows, _ = confirm_launches(
+                lambda: trainer.train_step(pts, valid, target), per_step,
+                f"a {name} train step")
+            med = statistics.median(step_ms)
+            r.update({
+                "step_ms_median": med, "step_ms_max": max(step_ms),
+                "steps_ms": step_ms, "losses": losses,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                "hungarian_host_ms_per_step": (sum(hung_ms) / DT_STEPS
+                                               if hung_ms else None),
+                "hungarian_calls_per_step": len(hung_ms) / DT_STEPS,
+                "profiled_step": {"launches": counts, "device_ms": dev_ms,
+                                  "device_busy_share": dev_ms / med,
+                                  "device_ms_by_family": families(rows)}})
+
+            # (e) predict_step: 10 timed calls; the kept boxes against the
+            # plain run's
+            trainer.predict_step(pts, valid)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            pred_ms = []
+            for _ in range(DT_PREDICTS):
+                t0 = time.perf_counter()
+                boxes = trainer.predict_step(pts, valid)
+                torch.cuda.synchronize()
+                pred_ms.append((time.perf_counter() - t0) * 1e3)
+            pred_launches = dict(kernels.launches)
+            if pred_launches != {**zero, "grid_scatter_max_occ": DT_PREDICTS}:
+                fail(f"{name}: predict_step launches {pred_launches}")
+            ref = trainer.predict_step(pts, valid, plain=True)
+            diff = max(float((getattr(boxes, f) - getattr(ref, f)).abs().max())
+                       for f in box_fields)
+            kept = boxes.valid.sum(-1).tolist()
+            r.update({"predict_ms_median": statistics.median(pred_ms),
+                      "predict_ms_max": max(pred_ms), "predict_kept": kept,
+                      "predict_max_abs_diff_vs_plain": diff})
+            if (not torch.equal(boxes.valid, ref.valid) or not diff <= DET_BOX_ATOL
+                    or not all(bool(torch.isfinite(getattr(boxes, f)).all())
+                               for f in box_fields)):
+                fail(f"{name}: predict_step kept boxes differ from the plain "
+                     f"run's (max abs diff {diff}, kept {kept} vs "
+                     f"{ref.valid.sum(-1).tolist()})")
+            for k in launches:
+                launches[k] += step_launches[k] + pred_launches[k]
+            res["configs"][name] = r
+            emit({"phase": "detectors_config", "name": name,
+                  **{k: v for k, v in r.items() if k not in ("steps_ms", "losses")}})
+            del loop, trainer, snap, state0, boxes, ref
+            torch.cuda.empty_cache()
+        del loops
+
+        # the end-to-end run: liso_cli -c bev_100m_512 transfusion liso
+        argv = ["-c", "bev_100m_512", "transfusion", "liso"]
+        for kv in DT_CLI_KV:
+            argv += ["-kv", *kv]
+        rec = RoundsRecorder()
+        out = io.StringIO()
+        with rec, contextlib.redirect_stdout(out):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            log_dir = liso_cli.main(argv + ["--summary_dir",
+                                            str(Path(tmp.name) / "cli")])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            cli_launches = dict(kernels.launches)
+        loop = rec.loop
+        n_val = len(loop.val_dataset)
+        n_train = len(loop.train_dataset_factory(None))
+        chunks = -(-n_train // M_CHUNK)
+        # K1: each step, each detector mining chunk (rounds 1 and 2), each
+        # validate's predict_step (val + val-on-train); the VJP: each step
+        expect = {**zero, "grid_scatter_max_occ": DT_TOTAL + 2 * chunks
+                  + 2 * (n_val + n_train), "scatter_max_vjp": DT_TOTAL}
+        mined, resets = run_lines(out.getvalue())
+        ckpts = sorted(int(p.name) for p in (Path(log_dir) / "ckpts").iterdir()
+                       if p.name.isdigit())
+        cli_losses = [m["loss/total"] for m in rec.metrics]
+        res["liso_cli"] = {
+            "configs": " ".join(argv[1:]), "run_s": run_s,
+            "launches": cli_launches, "mined_at": mined, "resets": resets,
+            "checkpoints": ckpts,
+            "trainer": type(loop.trainer).__name__,
+            "rounds": [{**r, "mined_db_run_val_s": v["seconds"]} for r, v in
+                       zip(rec.rounds, [v for v in rec.run_vals
+                                        if not v["validate"]])],
+            "steps": [{"step": t["step"], "prepare_ms": t["prepare_s"] * 1e3,
+                       "wait_ms": t["wait_s"] * 1e3,
+                       "train_step_ms": t["step_s"] * 1e3, "loss": t["loss"]}
+                      for t in loop.step_timings],
+            "validate_s": [v["seconds"] for v in rec.validates],
+            "save_ms": [x["ms"] for x in rec.saves]}
+        stages = res["liso_cli"]
+        stages["stage_s"] = {
+            "mining": sum(x["seconds"] for x in rec.rounds),
+            "mined_db_run_val": sum(x["mined_db_run_val_s"] for x in stages["rounds"]),
+            "validate": sum(stages["validate_s"]),
+            "train_steps": sum(t["step_s"] for t in loop.step_timings),
+            "prepare_batch": sum(t["prepare_s"] for t in loop.step_timings),
+            "loader_wait": sum(t["wait_s"] for t in loop.step_timings),
+            "save": sum(stages["save_ms"]) / 1e3}
+        if cli_launches != expect:
+            fail(f"liso_cli transfusion launches {cli_launches}, expected {expect}")
+        if (stages["trainer"] != "DetectorTrainer"
+                or loop.trainer.network != "transfusion"):
+            fail(f"liso_cli transfusion built {stages['trainer']}")
+        if mined != [(s, s // DT_SPR) for s in range(0, DT_TOTAL, DT_SPR)] or resets != [2]:
+            fail(f"liso_cli transfusion mined at {mined}, resets {resets}")
+        if [v["step"] for v in rec.validates] != [DT_VAL, DT_TOTAL]:
+            fail(f"liso_cli transfusion validates at "
+                 f"{[v['step'] for v in rec.validates]}")
+        if ckpts != [DT_SPR, 2 * DT_SPR, DT_TOTAL]:
+            fail(f"liso_cli transfusion checkpoints at {ckpts}")
+        if len(cli_losses) != DT_TOTAL or not all(np.isfinite(cli_losses)):
+            fail(f"liso_cli transfusion losses {cli_losses}")
+        for k in launches:
+            launches[k] += cli_launches[k]
+        del loop, rec
+    finally:
+        hungarian_loss.assign_host = assign
+        tmp.cleanup()
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    return kres, res
+
+
 def run_path(serve, slim, det, frames, valid, plain=False):
     """fused_forward, then encode + chained fused_streaming steps."""
     import torch
@@ -3013,6 +3322,13 @@ def main() -> int:
     for r in rkres:
         emit({"phase": "kernel", "path": "rounds", **r})
         by_name[r["name"]]["rounds_shape"] = shape_entry(r)
+    torch.cuda.empty_cache()
+    dtkres, detectors = phase_detectors(kernels)
+    emit({**{k: v for k, v in detectors.items() if k != "configs"},
+          "nvidia_smi": smi})
+    for r in dtkres:
+        emit({"phase": "kernel", "path": "detectors", **r})
+        by_name[r["name"]]["detectors_shape"] = shape_entry(r)
     for r in kres:
         name = r["name"]
         r["launches_by_path"] = {
@@ -3024,7 +3340,8 @@ def main() -> int:
             "mine": (mining["round0"]["launches"][name]
                      + mining["round1"]["launches"][name]),
             "eval": evaluation["launches"][name],
-            "rounds": rounds["launches"][name]}
+            "rounds": rounds["launches"][name],
+            "detectors": detectors["launches"][name]}
         r["launches"] = sum(r["launches_by_path"].values())
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump({"device": device, "nvidia_smi": smi, "kernels": kres,
@@ -3035,6 +3352,7 @@ def main() -> int:
                    "mining_kernels": mkres, "mining": mining,
                    "eval_kernels": vkres, "eval": evaluation,
                    "rounds_kernels": rkres, "rounds": rounds,
+                   "detectors_kernels": dtkres, "detectors": detectors,
                    "ptxas": ptxas,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     with open(OUT_DIR / "chip_smoke_profile.txt", "w") as f:
@@ -3075,6 +3393,7 @@ def main() -> int:
             "bound_by", "library_ms", "kernel_only_ms", "host_ms",
             "library_ms_prezeroed", "train_shape", "detect_train_shape",
             "slim_experiment_shape", "mine_shape", "eval_shape", "rounds_shape",
+            "detectors_shape",
             "second_shape", "decoder_shape", "host_steps_ms",
             "skewed_layout", "slim_step_layout", "serving_step_layout",
             "needed_pairs", "visited_pairs", "visited_over_needed",
@@ -3082,7 +3401,7 @@ def main() -> int:
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
           "slim_experiment_s": experiment["phase_s"],
           "mining_s": mining["phase_s"], "eval_s": evaluation["phase_s"],
-          "rounds_s": rounds["phase_s"],
+          "rounds_s": rounds["phase_s"], "detectors_s": detectors["phase_s"],
           "nvidia_smi": smi})
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})
     print(smi, flush=True)

@@ -1,6 +1,8 @@
 """CenterPoint-style single-stage BEV detector (port of
-liso_tpu/models/centerpoint.py, baseline configuration). Modules run NCHW;
-CenterPointNet takes and returns channels-last maps.
+liso_tpu/models/centerpoint.py). The baseline configuration
+(use_baseline_parameters=True) predicts at /4 of the BEV grid; the other
+runs a two-stage RPN and a stride-2 shared conv and predicts at /8. Modules
+run NCHW; CenterPointNet takes and returns channels-last maps.
 
 The mode follows `nn.Module.training`, as flax's `train` argument does: in
 train mode every BatchNorm (eps 1e-3, flax momentum 0.99) normalises with
@@ -21,14 +23,14 @@ from liso_tpu_torch.ops.bev import BevSetup
 
 class ConvBNRelu(nn.Module):
     def __init__(self, cin, filters, stride=1, kernel=3, transpose=False,
-                 dtype=None, device=None):
+                 dtype=None, cudnn=True, device=None):
         super().__init__()
         if transpose:
             self.conv = ConvTranspose(cin, filters, stride, dtype=dtype,
                                       device=device)
         else:
             self.conv = Conv(cin, filters, kernel, stride, bias=False,
-                             dtype=dtype, device=device)
+                             dtype=dtype, cudnn=cudnn, device=device)
         self.bn = BatchNorm(filters, 1e-3, dtype=dtype, device=device)
 
     def forward(self, x):
@@ -90,6 +92,14 @@ class RPN(nn.Module):
         return torch.cat(ups, dim=1)
 
 
+def two_stage_rpn_kwargs(hid_dim: int) -> dict:
+    """The two-stage RPN of the non-baseline CenterPoint, TransFusion's
+    backbone too: [3, 5] convs at strides [2, 2] with filters [hid, 128],
+    both stages brought to /4 with 128 channels each."""
+    return dict(layer_nums=(3, 5), ds_strides=(2, 2), ds_filters=(hid_dim, 128),
+                us_strides=(0.5, 1), us_filters=(128, 128))
+
+
 class SepHead(nn.Module):
     """Per-attribute heads with the hidden convs fused across heads into
     one conv + BN (exact: BN is per channel), then one 3x3 output conv per
@@ -128,22 +138,27 @@ class CenterPointNet(nn.Module):
                  share_conv_channel: int = 64, point_features: int = 4,
                  dtype=None, device=None):
         super().__init__()
-        if not use_baseline_parameters:
-            raise NotImplementedError(
-                "only the baseline CenterPoint configuration is ported"
-            )
         kw = dict(dtype=dtype, device=device)
+        self.use_baseline_parameters = use_baseline_parameters
         self.pfn = PillarEncoder(bev, num_channels=hid_dim,
                                  point_features=point_features,
                                  scatter_dtype=dtype, device=device)
-        self.rpn = RPN(hid_dim, **kw)
+        if use_baseline_parameters:
+            self.rpn = RPN(hid_dim, **kw)
+        else:
+            self.rpn = RPN(hid_dim, **two_stage_rpn_kwargs(hid_dim), **kw)
+        # the non-baseline shared conv is a 3x3 at stride 2: XLA's SAME
+        # pads it (0, 1) on an even map (layers.same_pads)
         self.shared_conv = ConvBNRelu(self.rpn.out_channels,
-                                      share_conv_channel, 1, **kw)
+                                      share_conv_channel,
+                                      1 if use_baseline_parameters else 2,
+                                      **kw)
         self.sep_head = SepHead(share_conv_channel, head_channels, **kw)
 
     @property
     def out_downsample_factor(self) -> int:
-        return 4
+        """BEV grid -> prediction grid factor."""
+        return 4 if self.use_baseline_parameters else 8
 
     def forward(self, points, valid, prepared=None, pillar_image=None,
                 plain: bool = False):

@@ -28,15 +28,28 @@ def _compute_dtype(dtype, x: torch.Tensor, w: torch.Tensor):
 
 
 class Conv(nn.Conv2d):
-    """flax `nn.Conv` (NCHW): XLA 'SAME' padding, optional compute dtype."""
+    """flax `nn.Conv` (NCHW): XLA 'SAME' padding, optional compute dtype.
+    `cudnn=False` runs the forward through PyTorch's own CUDA convolution
+    (im2col and a cuBLAS GEMM) instead of cuDNN's, for a shape where
+    cuDNN's choice is pathological; the backward stays cuDNN's."""
 
     def __init__(self, cin, cout, k, stride=1, groups=1, bias=True,
-                 dtype=None, device=None):
+                 dtype=None, cudnn=True, device=None):
         super().__init__(cin, cout, k, stride=stride, padding=0,
                          groups=groups, bias=bias, device=device)
         self.dtype = dtype
+        self.cudnn = cudnn
 
     def forward(self, x):
+        if self.cudnn or not torch.backends.cudnn.enabled:
+            return self._forward(x)
+        torch.backends.cudnn.enabled = False
+        try:
+            return self._forward(x)
+        finally:
+            torch.backends.cudnn.enabled = True
+
+    def _forward(self, x):
         k, s = self.kernel_size[0], self.stride[0]
         ph = same_pads(x.shape[-2], k, s)
         pw = same_pads(x.shape[-1], k, s)
@@ -142,9 +155,9 @@ class BatchNorm(nn.Module):
 def init_weights(module: nn.Module, seed: int, small_std=()) -> nn.Module:
     """Seeded random weights, made on the CPU from one torch.Generator so
     they do not depend on the device: kernels ~ N(0, 1/fan_in) (flax's
-    lecun-normal scale), biases 0, norm scales 1 and shifts 0, BN running
-    stats (0, 1). Modules whose name is in `small_std` draw N(0, 1e-2),
-    flax's init of the flow heads."""
+    lecun-normal scale), biases 0, norm scales 1 and shifts 0 (GroupNorm,
+    LayerNorm, BatchNorm), BN running stats (0, 1). Modules whose name is
+    in `small_std` draw N(0, 1e-2), flax's init of the flow heads."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, m in module.named_modules():
@@ -160,7 +173,7 @@ def init_weights(module: nn.Module, seed: int, small_std=()) -> nn.Module:
                 w.copy_(torch.randn(w.shape, generator=gen) * std)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, (nn.GroupNorm, BatchNorm)):
+            elif isinstance(m, (nn.GroupNorm, nn.LayerNorm, BatchNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 if isinstance(m, BatchNorm):

@@ -1,19 +1,23 @@
-"""Detector training step (port of liso_tpu/train/detector_train.py for
-network="centerpoint").
+"""Detector training step (port of liso_tpu/train/detector_train.py, for
+the centerpoint network, baseline or not, and transfusion).
 
 `DetectorTrainer` builds the BoxLearner on the card unless the caller
-passes `device="cpu"` (without CUDA it raises) and holds the train state:
-the model's parameters and batch-norm statistics, the AdamW moments `mu`
-and `nu`, the optimizer's `count` and the `step`. `train_step` runs one
-step in place: the train-mode forward, centermap targets rendered from the
-target boxes on the device, the centerpoint loss, its gradient, and the
-AdamW update with optax's semantics under the OneCycle schedule.
-`predict_step` is the eval forward with sigmoid, confidence threshold, a
-pre-NMS cap and rotated NMS. Both run in fp32, as the JAX trainer does:
-TF32 is off for cuDNN convolutions and cuBLAS matmuls while a step runs,
-and the caller's settings are put back after it. `state_dict()` /
-`load_state_dict()` carry the train state through `utils/checkpoint.py`;
-`reset_optimizer()` starts AdamW and the schedule again.
+passes `device="cpu"` (without CUDA it raises) and holds the train state
+(`AdamWTrainState`): the model's parameters and batch-norm statistics, the
+AdamW moments `mu` and `nu`, the optimizer's `count` and the `step`.
+`train_step` runs one step in place: the train-mode forward, the targets
+rendered from the target boxes on the device, the loss (centerpoint: the
+centermap loss; transfusion: the heatmap focal loss and the Hungarian set
+loss of every decoder layer, x0.25), its gradient, and the AdamW update
+with optax's semantics under the OneCycle schedule. `predict_step` is the
+eval forward with sigmoid, confidence threshold, a pre-NMS cap and rotated
+NMS. Both run in fp32, as the JAX trainer does: TF32 is off for cuDNN
+convolutions and cuBLAS matmuls while a step runs, and the caller's
+settings are put back after it. `state_dict()` / `load_state_dict()` carry
+the train state through `utils/checkpoint.py`; `reset_optimizer()` starts
+AdamW and the schedule again. The PointPillars and PointRCNN trainers
+(train/pointpillars_train.py, train/pointrcnn_train.py) hold the same
+state through the same class.
 """
 from __future__ import annotations
 
@@ -22,8 +26,17 @@ from typing import Optional
 import torch
 
 from liso_tpu_torch.data.centermaps import render_centermaps
-from liso_tpu_torch.losses.centerpoint_loss import centerpoint_loss
-from liso_tpu_torch.models.box_decode import BoxPredictionCfg
+from liso_tpu_torch.losses.centerpoint_loss import (
+    centerpoint_loss,
+    focal_heatmap_loss,
+)
+from liso_tpu_torch.losses.hungarian_loss import hungarian_matching_loss
+from liso_tpu_torch.models.box_decode import (
+    BoxPredictionCfg,
+    apply_activations,
+    decode_box_maps,
+    flatten_to_boxes,
+)
 from liso_tpu_torch.models.box_learner import BoxLearner
 from liso_tpu_torch.models.layers import init_weights
 from liso_tpu_torch.ops.bev import BevSetup
@@ -38,38 +51,14 @@ from liso_tpu_torch.train.slim_train import (
 from liso_tpu_torch.utils.schedules import onecycle
 
 
-class DetectorTrainer:
-    """Model, train state and the detector's train / predict steps."""
+class AdamWTrainState:
+    """The train state of a detector trainer and its AdamW step: `model`
+    (parameters and batch-norm statistics), AdamW's moments `mu` and `nu`
+    and its `count` (the OneCycle schedule reads it), and the `step`.
+    A subclass builds `model` on `device` and then calls `_init_state`."""
 
-    def __init__(
-        self,
-        bev: BevSetup,
-        *,
-        network: str = "centerpoint",
-        box_cfg: Optional[BoxPredictionCfg] = None,
-        max_lr: float = 1e-4,
-        total_steps: int = 150_000,
-        weight_decay: float = 0.01,
-        nms_iou_threshold: float = 0.1,
-        pre_max_boxes: int = 1000,
-        post_max_boxes: int = 100,
-        confidence_threshold: float = 0.3,
-        seed: int = 0,
-        device=None,
-    ):
-        if network != "centerpoint":
-            raise NotImplementedError(f"network {network!r} is not ported yet")
-        self.device = resolve_device(device)
-        self.bev = bev
-        self.box_cfg = box_cfg or BoxPredictionCfg()
-        # baseline CenterPoint in fp32, as the JAX trainer builds its
-        # BoxLearner (no compute_dtype)
-        self.model = BoxLearner(bev, box_cfg=self.box_cfg, device=self.device)
-        init_weights(self.model, seed)
-        self.nms_iou_threshold = nms_iou_threshold
-        self.pre_max_boxes = pre_max_boxes
-        self.post_max_boxes = post_max_boxes
-        self.confidence_threshold = confidence_threshold
+    def _init_state(self, max_lr: float, total_steps: int,
+                    weight_decay: float) -> None:
         self.weight_decay = weight_decay
         self.lr_schedule = onecycle(max_lr, total_steps)
         self.params = dict(self.model.named_parameters())
@@ -113,11 +102,71 @@ class DetectorTrainer:
         self.count = 0
         self.step = 0
 
+    def _update(self, losses: dict, total: torch.Tensor):
+        """Backward of `total` and one AdamW step in place. Returns the JAX
+        train step's metrics, `loss/<term>` for each of `losses` (0-dim
+        tensors) and `lr` (the schedule at this step), and the gradients."""
+        params = list(self.params.values())
+        for p in params:
+            p.grad = None
+        total.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        lr = float(self.lr_schedule(self.count))
+        adamw_update_(params, grads, list(self.mu.values()),
+                      list(self.nu.values()), self.count, lr,
+                      self.weight_decay)
+        metrics = {f"loss/{k}": v.detach() for k, v in losses.items()}
+        metrics["lr"] = self.lr_schedule(self.step)
+        self.count += 1
+        self.step += 1
+        return metrics, grads
+
+
+class DetectorTrainer(AdamWTrainState):
+    """Model, train state and the detector's train / predict steps."""
+
+    def __init__(
+        self,
+        bev: BevSetup,
+        *,
+        network: str = "centerpoint",
+        box_cfg: Optional[BoxPredictionCfg] = None,
+        max_lr: float = 1e-4,
+        total_steps: int = 150_000,
+        weight_decay: float = 0.01,
+        nms_iou_threshold: float = 0.1,
+        pre_max_boxes: int = 1000,
+        post_max_boxes: int = 100,
+        confidence_threshold: float = 0.3,
+        use_baseline_parameters: bool = True,
+        num_decoder_layers: int = 1,
+        seed: int = 0,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.bev = bev
+        self.network = network
+        self.box_cfg = box_cfg or BoxPredictionCfg()
+        # fp32, as the JAX trainer builds its BoxLearner (no compute_dtype)
+        self.model = BoxLearner(
+            bev, box_cfg=self.box_cfg, network=network,
+            use_baseline_parameters=use_baseline_parameters,
+            num_decoder_layers=num_decoder_layers, device=self.device)
+        init_weights(self.model, seed)
+        self.nms_iou_threshold = nms_iou_threshold
+        self.pre_max_boxes = pre_max_boxes
+        self.post_max_boxes = post_max_boxes
+        self.confidence_threshold = confidence_threshold
+        self._init_state(max_lr, total_steps, weight_decay)
+
     def _loss(self, points, valid, target_boxes: Boxes, ignore_mask,
               plain: bool):
         """Train-mode forward and loss terms (batch-norm statistics move)."""
         self.model.train()
-        _, decoded, activated, _ = self.model(points, valid, plain=plain)
+        flat, decoded, activated, aux = self.model(points, valid, plain=plain)
+        if self.network == "transfusion":
+            return self._transfusion_loss(flat, aux, target_boxes, ignore_mask)
         gt_maps = render_centermaps(target_boxes, self.bev,
                                     tuple(decoded["probs"].shape[1:3]),
                                     self.box_cfg)
@@ -128,30 +177,40 @@ class DetectorTrainer:
             rotation_method=self.box_cfg.rotation_method,
         )
 
+    def _transfusion_loss(self, flat: Boxes, aux: dict, target_boxes: Boxes,
+                          ignore_mask):
+        """The heatmap focal loss, then each decoder layer's Hungarian set
+        loss x0.25, every layer matched on its own; the layers before the
+        last carry the suffix `_aux<i>`."""
+        heatmap = aux["heatmap"]
+        gt_maps = render_centermaps(target_boxes, self.bev,
+                                    tuple(heatmap.shape[1:3]), self.box_cfg)
+        losses = {"heatmap": focal_heatmap_loss(
+            heatmap, gt_maps["probs"], gt_maps["center_bool_mask"],
+            ignore_mask)}
+        layer_maps = aux["layer_maps"]
+        for li, lm in enumerate(layer_maps):
+            layer_flat = flatten_to_boxes(decode_box_maps(
+                apply_activations(lm, self.box_cfg), self.box_cfg, self.bev))
+            hung = hungarian_matching_loss(target_boxes, layer_flat)
+            suffix = "" if li == len(layer_maps) - 1 else f"_aux{li}"
+            for k, v in hung.items():
+                losses[f"hungarian_{k}{suffix}"] = 0.25 * v
+        losses["total"] = sum(losses.values())
+        return losses
+
     @fp32_precision()
     def train_step(self, points: torch.Tensor, valid: torch.Tensor,
                    target_boxes: Boxes,
                    ignore_mask: Optional[torch.Tensor] = None,
                    plain: bool = False) -> dict:
         """One step in place. Returns the JAX train step's metrics (0-dim
-        tensors): `loss/<term>` for probs, rot, dims, pos and total, `lr`
+        tensors): `loss/<term>` for each loss term and the total (centerpoint:
+        probs, rot, dims, pos; transfusion: heatmap and hungarian_*), `lr`
         (the schedule at this step) and `grad_norm`."""
-        params = list(self.params.values())
-        for p in params:
-            p.grad = None
         losses = self._loss(points, valid, target_boxes, ignore_mask, plain)
-        losses["total"].backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        lr = float(self.lr_schedule(self.count))
-        adamw_update_(params, grads, list(self.mu.values()),
-                      list(self.nu.values()), self.count, lr,
-                      self.weight_decay)
-        metrics = {f"loss/{k}": v.detach() for k, v in losses.items()}
-        metrics["lr"] = self.lr_schedule(self.step)
+        metrics, grads = self._update(losses, losses["total"])
         metrics["grad_norm"] = global_norm(grads)
-        self.count += 1
-        self.step += 1
         return metrics
 
     @torch.no_grad()

@@ -60,6 +60,8 @@ from liso_tpu_torch.tracker.mining import (
     union_proposals,
 )
 from liso_tpu_torch.train.detector_train import DetectorTrainer
+from liso_tpu_torch.train.pointpillars_train import PointPillarsTrainer
+from liso_tpu_torch.train.pointrcnn_train import PointRCNNTrainer
 from liso_tpu_torch.utils.checkpoint import (
     check_checkpoint_config_sanity,
     latest_step,
@@ -68,8 +70,6 @@ from liso_tpu_torch.utils.checkpoint import (
 )
 from liso_tpu_torch.utils.tb import TBFactory
 
-ITEM_3 = ("ROADMAP section A item 3 (other detectors and the non-baseline "
-          "CenterPoint) is not ported yet")
 # what reading a missing or half-written DB file raises: the JAX loop
 # catches only the first two, so a truncated tracked.npz (BadZipFile) or
 # augm_db.npy (UnpicklingError) stops its resume
@@ -248,26 +248,20 @@ class LisoSelfTraining:
         # host, and the loss
         self.step_timings: List[dict] = []
 
-    def _make_trainer(self) -> DetectorTrainer:
-        """The baseline CenterPoint's trainer. OneCycle spans the whole
-        reset period, steps_per_round x drop_net_weights_every_nth_round
-        (+2), as in the reference (liso_cli.py:806-820)."""
+    def _make_trainer(self):
+        """The trainer of `network.name`: DetectorTrainer for centerpoint
+        (baseline or not, `network.centerpoint.use_baseline_parameters`) and
+        transfusion, PointPillarsTrainer, PointRCNNTrainer. OneCycle spans
+        the whole reset period, steps_per_round x
+        drop_net_weights_every_nth_round (+2), as in the reference
+        (liso_cli.py:806-820)."""
         opt = self.cfg.optimization
         if opt.rounds.active:
             drop = max(int(opt.rounds.drop_net_weights_every_nth_round), 1)
             steps = int(opt.rounds.steps_per_round) * drop + 2
         else:
             steps = int(opt.num_training_steps) + 2
-        if self.cfg.network.name in ("pointpillars", "pointrcnn"):
-            raise NotImplementedError(
-                f"network {self.cfg.network.name!r}: {ITEM_3}")
-        if not bool(self.cfg.network.centerpoint.use_baseline_parameters):
-            raise NotImplementedError(
-                f"use_baseline_parameters=False: {ITEM_3}")
-        return DetectorTrainer(
-            self.bev,
-            network=self.cfg.network.name,
-            box_cfg=self.box_cfg,
+        common = dict(
             max_lr=float(opt.learning_rate),
             total_steps=steps,
             nms_iou_threshold=float(self.cfg.nms_iou_threshold),
@@ -278,6 +272,20 @@ class LisoSelfTraining:
                 opt.rounds.confidence_threshold_mined_boxes
             ),
             device=self.device,
+        )
+        name = self.cfg.network.name
+        if name == "pointpillars":
+            return PointPillarsTrainer(self.bev, **common)
+        if name == "pointrcnn":
+            return PointRCNNTrainer(self.bev, **common)
+        return DetectorTrainer(
+            self.bev,
+            network=name,
+            box_cfg=self.box_cfg,
+            use_baseline_parameters=bool(
+                self.cfg.network.centerpoint.use_baseline_parameters
+            ),
+            **common,
         )
 
     # ------------------------------------------------------------------

@@ -9,7 +9,13 @@ params/raft/joint/layer1a/conv1/kernel names the torch submodule
     both spatial axes flipped (flax does not flip, torch's transposed conv
     does);
   * Dense kernel [in, out] -> weight [out, in];
-  * GroupNorm / BatchNorm / MaskedBatchNorm scale, bias -> weight, bias;
+  * DenseGeneral kernels of the attention (flax MultiHeadDotProductAttention)
+    -> the weight of one Linear with the heads flattened head-major: the
+    query / key / value kernel [d, heads, head_dim] and the output kernel
+    [heads, head_dim, d] both read as [in_features, out_features] and are
+    transposed; a [heads, head_dim] bias is flattened;
+  * GroupNorm / BatchNorm / MaskedBatchNorm / LayerNorm scale, bias ->
+    weight, bias;
   * batch_stats mean, var -> running_mean, running_var.
 """
 from __future__ import annotations
@@ -41,11 +47,13 @@ def _convert(sub: nn.Module, leaf: str, arr: np.ndarray):
             return "weight", arr.transpose(3, 2, 0, 1)
         if arr.ndim == 2:
             return "weight", arr.T
+        if arr.ndim == 3 and isinstance(sub, nn.Linear):
+            return "weight", arr.reshape(sub.in_features, -1).T
         raise ValueError(f"kernel of rank {arr.ndim}")
     if leaf == "scale":
         return "weight", arr
     if leaf == "bias":
-        return "bias", arr
+        return "bias", arr.reshape(-1) if isinstance(sub, nn.Linear) else arr
     raise KeyError(leaf)
 
 
@@ -139,8 +147,9 @@ def load_slim_train_state(trainer, state: Mapping):
 
 
 def load_detector_train_state(trainer, state: Mapping):
-    """Carry a JAX `DetectorTrainState` across into a `DetectorTrainer`,
-    given as numpy: {"step", "params", "batch_stats", "mu", "nu" (the
+    """Carry a JAX `DetectorTrainState`, `PPTrainState` or `PRTrainState`
+    across into the port's `DetectorTrainer`, `PointPillarsTrainer` or
+    `PointRCNNTrainer` (the same fields on both sides), given as numpy: {"step", "params", "batch_stats", "mu", "nu" (the
     AdamW moments, params-shaped trees), "count" (the optimizer's count,
     which its schedule reads)}."""
     load_flax_variables(trainer.model, {"params": state["params"],

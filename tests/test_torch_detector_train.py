@@ -265,3 +265,68 @@ def test_predict_step(runs):
     for f in ("pos", "dims", "rot", "probs"):
         np.testing.assert_allclose(getattr(got, f).numpy(), getattr(want, f),
                                    atol=BOX_ATOL, rtol=BOX_ATOL, err_msg=f)
+
+
+@pytest.fixture(scope="module")
+def non_baseline():
+    """The non-baseline CenterPoint (use_baseline_parameters=False: the
+    two-stage RPN, a stride-2 shared conv, predictions at /8): one JAX step
+    from a random state and predict_step after it; the port from the same
+    states."""
+    pts, valid, boxes = _batch()
+    jt = JTrainer(JBev((RANGE, RANGE), (GRID, GRID)),
+                  use_baseline_parameters=False, **CFG)
+    jp, jv = jnp.asarray(pts), jnp.asarray(valid)
+    jboxes = JBoxes(**{k: jnp.asarray(v) for k, v in boxes.items()})
+    v = random_variables(jt.model.init, jp, jv, seed=32)
+    params = jax.tree_util.tree_map(jnp.asarray, v["params"])
+    state0 = DetectorTrainState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        batch_stats=jax.tree_util.tree_map(jnp.asarray, v["batch_stats"]),
+        opt_state=jt.tx.init(params),
+    )
+    st, m = jt.train_step(jax.tree_util.tree_map(jnp.asarray, _np(state0)),
+                          jp, jv, jboxes)
+    state1 = _np(st)
+    jpred = _np(jt.predict_step(jax.tree_util.tree_map(jnp.asarray, state1),
+                                jp, jv))
+    tt = DetectorTrainer(BevSetup((RANGE, RANGE), (GRID, GRID)),
+                         use_baseline_parameters=False, device="cpu", **CFG)
+    tp, tv = torch.from_numpy(pts), torch.from_numpy(valid)
+    load_detector_train_state(tt, _as_port(_np(state0)))
+    tm = tt.train_step(tp, tv, Boxes(**{k: torch.from_numpy(x)
+                                        for k, x in boxes.items()}))
+    grads = {n: p.grad.clone() for n, p in tt.params.items()}
+    load_detector_train_state(tt, _as_port(state1))
+    jgrad = {k: x / 0.1 for k, x in flax_state_dict(
+        tt.model, {"params": state1.opt_state[0].mu}).items()}
+    return dict(jmetrics={k: float(x) for k, x in m.items()},
+                metrics={k: float(x) for k, x in tm.items()}, grads=grads,
+                jgrads=jgrad, jpred=jpred, tpred=tt.predict_step(tp, tv))
+
+
+def test_non_baseline_train_step(non_baseline):
+    """Loss terms, learning rate and grad norm within the baseline's
+    tolerances, and every gradient (the normed bias held to its bound)."""
+    got, want = non_baseline["metrics"], non_baseline["jmetrics"]
+    assert set(got) == set(want)
+    for k in want:
+        rtol = GRAD_NORM_RTOL if k == "grad_norm" else LOSS_RTOL
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, err_msg=k)
+    g, w = non_baseline["grads"], non_baseline["jgrads"]
+    bad = {k: _rel(g[k], w[k]) for k in w
+           if k != NORMED_BIAS and not _rel(g[k], w[k]) <= GRAD_REL}
+    assert not bad, bad
+    wk = NORMED_BIAS[: -len("bias")] + "weight"
+    assert float(g[NORMED_BIAS].norm()) <= ZERO_GRAD_REL * float(g[wk].norm())
+
+
+def test_non_baseline_predict_step(non_baseline):
+    """predict_step after the step: the same kept set, boxes within
+    BOX_ATOL."""
+    got, want = non_baseline["tpred"], non_baseline["jpred"]
+    np.testing.assert_array_equal(got.valid.numpy(), want.valid)
+    assert int(got.valid.sum()) > 0
+    for f in ("pos", "dims", "rot", "probs"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), getattr(want, f),
+                                   atol=BOX_ATOL, rtol=BOX_ATOL, err_msg=f)

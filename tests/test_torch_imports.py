@@ -65,6 +65,12 @@ def test_package_imports_with_jax_blocked():
         "import liso_tpu_torch.utils.misc, liso_tpu_torch.utils.timing\n"
         "import liso_tpu_torch.data.augmentation\n"
         "import liso_tpu_torch.cli.liso_cli, liso_tpu_torch.cli.mining_cli\n"
+        "import liso_tpu_torch.train.pointpillars_train\n"
+        "import liso_tpu_torch.train.pointrcnn_train\n"
+        "import liso_tpu_torch.models.transfusion\n"
+        "import liso_tpu_torch.losses.hungarian_loss\n"
+        "import liso_tpu_torch.ops.ball_query\n"
+        "import liso_tpu_torch.models.time_reduce_conv\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -107,8 +113,37 @@ def test_detector_trainer_refuses_cpu_fallback(monkeypatch):
         DetectorTrainer(bev, device="cuda")
     trainer = DetectorTrainer(bev, device="cpu")
     assert all(p.device.type == "cpu" for p in trainer.model.parameters())
-    with pytest.raises(NotImplementedError):
-        DetectorTrainer(bev, network="transfusion", device="cpu")
+    trainer = DetectorTrainer(bev, network="transfusion", device="cpu")
+    assert all(p.device.type == "cpu" for p in trainer.model.parameters())
+    with pytest.raises(NotImplementedError):  # its own trainer
+        DetectorTrainer(bev, network="pointpillars", device="cpu")
+
+
+@pytest.mark.parametrize("which", ["pointpillars", "pointrcnn",
+                                   "transfusion"])
+def test_other_trainers_refuse_cpu_fallback(which, monkeypatch):
+    """PointPillarsTrainer, PointRCNNTrainer and the transfusion
+    DetectorTrainer build on the card unless device="cpu" is passed, and
+    raise without CUDA."""
+    import functools
+
+    from liso_tpu_torch.ops.bev import BevSetup
+    from liso_tpu_torch.train.detector_train import DetectorTrainer
+    from liso_tpu_torch.train.pointpillars_train import PointPillarsTrainer
+    from liso_tpu_torch.train.pointrcnn_train import PointRCNNTrainer
+
+    make = {"pointpillars": PointPillarsTrainer,
+            "pointrcnn": PointRCNNTrainer,
+            "transfusion": functools.partial(DetectorTrainer,
+                                             network="transfusion")}[which]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bev = BevSetup((40.0, 40.0), (32, 32))
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(bev, device=device)
+    trainer = make(bev, device="cpu")
+    assert all(p.device.type == "cpu" for p in trainer.model.parameters())
+    assert trainer.device.type == "cpu"
 
 
 def test_detector_steps_pin_fp32(monkeypatch):

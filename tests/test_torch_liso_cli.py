@@ -32,6 +32,8 @@ def _cut(mp):
     mp.setitem(sys.modules, "matplotlib", None)
     mp.setattr(tloop, "DetectorTrainer", functools.partial(
         tloop.DetectorTrainer, pre_max_boxes=PRE_MAX_BOXES))
+    mp.setattr(tloop, "PointPillarsTrainer", functools.partial(
+        tloop.PointPillarsTrainer, pre_max_boxes=PRE_MAX_BOXES))
 
 
 @pytest.fixture(autouse=True)
@@ -39,8 +41,8 @@ def _small(monkeypatch):
     _cut(monkeypatch)
 
 
-def _argv(summary_dir, *extra):
-    argv = ["-c", "bev_100m_512", "centerpoint", "liso", "--fast-test",
+def _argv(summary_dir, *extra, network="centerpoint"):
+    argv = ["-c", "bev_100m_512", network, "liso", "--fast-test",
             "--device", "cpu", "--summary_dir", str(summary_dir)]
     for kv in CLI_KV:
         argv += ["-kv", *kv]
@@ -176,3 +178,45 @@ def test_clis_refuse_cpu_fallback(cli, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(argv)
     assert latest_step(tmp_path) is None
+
+
+# Each network's preset through liso_cli at the fast test's counts (rounds
+# of 3 steps, 6 in all, a validate and a checkpoint every 3 steps): each
+# trains, mines with its own detector (round 1) and predicts.
+PRESETS = {
+    "transfusion": ("transfusion", [], "DetectorTrainer"),
+    "pointpillars": ("pointpillars", [], "PointPillarsTrainer"),
+    "pointrcnn": ("pointrcnn", [], "PointRCNNTrainer"),
+    "centerpoint_non_baseline": (
+        "centerpoint",
+        [["network", "centerpoint", "use_baseline_parameters", "False"]],
+        "DetectorTrainer"),
+}
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_liso_cli_preset(preset, tmp_path, monkeypatch, capsys):
+    network, kv, trainer_cls = PRESETS[preset]
+    seen = {}
+    validate = tloop.LisoSelfTraining.validate
+
+    def record(self, step, *a, **k):
+        seen["metrics"] = validate(self, step, *a, **k)
+        seen["loop"] = self
+        return seen["metrics"]
+
+    monkeypatch.setattr(tloop.LisoSelfTraining, "validate", record)
+    extra = [a for pair in kv for a in ["-kv", *pair]]
+    log_dir = liso_cli.main(_argv(tmp_path, *extra, network=network))
+    out = capsys.readouterr().out
+    loop = seen["loop"]
+    assert type(loop.trainer).__name__ == trainer_cls
+    assert loop.cfg.network.name == network
+    assert _mined_lines(out) == ["step 0: mining round 0",
+                                  "step 3: mining round 1"]
+    assert _steps(log_dir / "ckpts") == [3, 6]
+    assert loop.trainer.step == 6
+    assert all(np.isfinite(t["loss"]) for t in loop.step_timings)
+    assert any(k.startswith("mAP") for k in seen["metrics"])
+    if preset == "centerpoint_non_baseline":
+        assert loop.trainer.model.model.out_downsample_factor == 8

@@ -274,7 +274,9 @@ def test_liso_self_training_device_and_item_3(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         loop.restore(tmp_path / "ckpts")
     assert loop.validate(0) == {}  # no val set: nothing to evaluate
+    # ROADMAP section A item 3 is ported: the non-baseline CenterPoint
+    # builds, and predicts at /8
     cfg.network.centerpoint.use_baseline_parameters = False
-    with pytest.raises(NotImplementedError, match="use_baseline_parameters"):
-        tloop.LisoSelfTraining(cfg, lambda db: None, None, tmp_path,
-                               data_cfg=dcfg, device="cpu")
+    loop = tloop.LisoSelfTraining(cfg, lambda db: None, None, tmp_path,
+                                  data_cfg=dcfg, device="cpu")
+    assert loop.trainer.model.model.out_downsample_factor == 8

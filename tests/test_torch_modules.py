@@ -161,6 +161,32 @@ def test_centerpoint_net():
         )
 
 
+@pytest.mark.parametrize("baseline", [True, False],
+                         ids=["baseline", "non_baseline"])
+def test_centerpoint_net_configurations(baseline):
+    """CenterPointNet with use_baseline_parameters True (the three-stage RPN,
+    predictions at /4) and False (the two-stage RPN and a stride-2 shared
+    conv, whose XLA SAME padding is asymmetric: predictions at /8), eval
+    mode, maps within 1e-4."""
+    pts, valid = _cloud(11)
+    jm = JCenterPoint(JBev((100.0, 100.0), (64, 64)),
+                      use_baseline_parameters=baseline)
+    v = random_variables(jm.init, jnp.asarray(pts), jnp.asarray(valid), seed=12)
+    want, _ = jax.jit(jm.apply)(v, jnp.asarray(pts), jnp.asarray(valid))
+    tm = load_flax_variables(CenterPointNet(
+        BevSetup((100.0, 100.0), (64, 64)), use_baseline_parameters=baseline), v)
+    tm.eval()
+    with torch.no_grad():
+        got, _ = tm(t(pts), t(valid))
+    assert tm.out_downsample_factor == jm.out_downsample_factor == (4 if baseline else 8)
+    side = 64 // tm.out_downsample_factor
+    for k in want:
+        assert tuple(got[k].shape[1:3]) == (side, side)
+        np.testing.assert_allclose(
+            got[k].numpy(), np.asarray(want[k]), atol=1e-4, rtol=1e-4, err_msg=k
+        )
+
+
 def test_box_learner():
     pts, valid = _cloud(9)
     jm = JBoxLearner(JBev((100.0, 100.0), (64, 64)), network="centerpoint")
@@ -181,8 +207,9 @@ def test_box_learner():
         np.testing.assert_array_equal(
             getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f
         )
+    # PointPillars and PointRCNN have their own pipelines, as in JAX
     with pytest.raises(NotImplementedError):
-        BoxLearner(BevSetup((100.0, 100.0), (64, 64)), network="transfusion")
+        BoxLearner(BevSetup((100.0, 100.0), (64, 64)), network="pointpillars")
 
 
 DECODE_CFGS = {

@@ -118,22 +118,24 @@ Phases, each printing JSON lines:
                flow metrics), the predict stage's device busy share.
   10. rounds - the rounds loop as `liso_cli -c bev_100m_512 centerpoint
                liso` runs it, in this process, cut only in its step counts
-               (R_KV: rounds of 8 steps, 17 in all, a checkpoint every 8, a
-               validate at 16), on the 64-frame drive: bootstrap mining at
-               step 0, detector mining at 8 and 16, the weight reset at 16,
+               (R_KV: rounds of 4 steps, 9 in all, a checkpoint every 4,
+               no validate in the loop: liso_cli's own at the end; cut from
+               rounds of 8, 17 steps and a validate at 16 to make room for
+               the parallel phase), on the 64-frame drive: bootstrap mining
+               at step 0, detector mining at 4 and 8, the weight reset at 8,
                copy-paste on; launches reset just before and read just
                after; the reset's weights against init_weights(seed + 3) on
-               the CPU (bitwise), AdamW's count 1 in the step-16 checkpoint;
+               the CPU (bitwise), AdamW's count 1 in the step-8 checkpoint;
                the first prepared batch's step against the CPU from the
                same initial weights (losses within R_CPU_RTOL); K1 and the
                fused VJP held bitwise and timed at that batch's cells (fp32
                C 64, batch 2, n_max 65536, 512^2 cells); one loop step
                against its plain run (cuDNN deterministic, losses within
-               DET_LOSS_RTOL) and under the profiler; the step-16
+               DET_LOSS_RTOL) and under the profiler; the step-8
                checkpoint and DBs restored bitwise into a fresh loop; then
-               liso_cli resumed from the step-8 checkpoint in its own
-               process, which must mine round 2 and reset at 16 and save 16
-               and 17; per round mining seconds, tracks, boxes and the mined
+               liso_cli resumed from the step-4 checkpoint in its own
+               process, which must mine round 2 and reset at 8 and save 8
+               and 9; per round mining seconds, tracks, boxes and the mined
                DB's run_val seconds, per step _prepare_batch and train-step
                ms and the loss, validate seconds, save and restore ms, the
                resume's wall time, the step's device busy share.
@@ -155,6 +157,23 @@ Phases, each printing JSON lines:
                counts (DT_CLI_KV: mining at 0, 4, 8, the reset at 8, a
                validate at 8 and at the end, saves at 4, 8, 9), with its
                seconds by stage.
+  12. parallel - data parallel on the one card (liso_tpu_torch/parallel):
+               (a) the SLIM train step at the train phase's point and (b)
+               the CenterPoint step at the rounds cell's (cuDNN
+               deterministic), each with the global batch of P_WORLD split
+               over P_WORLD gloo ranks in spawned processes: every rank's
+               first step against the one-process step on the full batch
+               (loss terms, grad norm; the threshold state; the BN running
+               statistics), P_STEPS timed steps after P_WARMUP (median, max,
+               host ms in the collectives, launches reset just before and
+               read just after on each rank), and rank 0's profiler on a
+               step; (c) one CenterPoint step over an nccl group of one
+               rank, whose state must equal bitwise the step's without a
+               group; (d) two `liso_cli -c bev_100m_512 centerpoint liso`
+               processes over one log dir (--world_size 2), cut in step
+               counts (P_CLI_KV): disjoint mined shards, the same merged DB
+               digest on both workers, equal parameter digests at every
+               round boundary.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. A failed check, or any exception, prints one
 line {"phase": "failed", "check": "<function>:<line>", "message": "..."}
@@ -220,11 +239,14 @@ EV_METRIC_ATOL, EV_NEAR, EV_THRESHOLDS = 1e-6, 1e-5, (0.25, 0.3, 0.4, 0.5, 0.7)
 # The rounds loop: `liso_cli -c bev_100m_512 centerpoint liso` on the
 # 64-frame drive, cut only in its step counts (R_KV): rounds of R_SPR steps
 # instead of 30000, R_STEPS in all instead of 350000, a checkpoint every
-# R_SPR steps, a validate at R_VAL. With the preset's
-# drop_net_weights_every_nth_round 2: mining at 0, 8 and 16, the reset at
-# 16. The first step's loss terms, card against the CPU, within R_CPU_RTOL
+# R_SPR steps, no validate inside the loop (R_VAL 0; liso_cli validates at
+# the end, and the detectors phase's CLI run validates inside its loop).
+# Cut from rounds of 8, 17 steps and a validate at 16, to make room for
+# the parallel phase. With the preset's
+# drop_net_weights_every_nth_round 2: mining at 0, 4 and 8, the reset at
+# 8. The first step's loss terms, card against the CPU, within R_CPU_RTOL
 # (the detector step's CPU parity limit, tests/test_torch_detector_train.py)
-R_SPR, R_STEPS, R_VAL, R_SNAP_STEP, R_CPU_RTOL = 8, 17, 16, 16, 1e-4
+R_SPR, R_STEPS, R_VAL, R_SNAP_STEP, R_CPU_RTOL = 4, 9, 0, 8, 1e-4
 R_KV = [["optimization", "rounds", "steps_per_round", str(R_SPR)],
         ["optimization", "num_training_steps", str(R_STEPS)],
         ["checkpoint", "save_model_every", str(R_SPR)],
@@ -255,6 +277,33 @@ DT_CLI_KV = [["optimization", "rounds", "steps_per_round", str(DT_SPR)],
              ["optimization", "num_training_steps", str(DT_TOTAL)],
              ["checkpoint", "save_model_every", str(DT_SPR)],
              ["validation", "val_every_n_steps", str(DT_VAL)]]
+# Data parallel (the parallel phase): the global batch of P_WORLD
+# (batch_size_two, liso_config.yml:489-491) split over P_WORLD gloo ranks,
+# one sample a rank, all on the one card (NCCL refuses two ranks on one
+# device). SLIM at the train phase's point (bf16), CenterPoint at the rounds
+# cell's (fp32, cuDNN deterministic). Each rank: the first step (compared
+# with the one-process step on the full batch), P_WARMUP - 1 more warm-up
+# steps, P_STEPS timed steps, then up to P_PROFILED steps with rank 0's under
+# the profiler, until its profiler sees every launch of the step. Limits against the one-process step: SLIM's loss and grad norm
+# as the train phase's kernels vs plain (bf16 noise); its threshold state's
+# bias counter (a function of the valid counts) within P_BIAS_RTOL and the
+# cumulative importance within P_CUMSUM_REL (dynamicness from the bf16
+# forward moves a point's improvement by hundreds of the 1e-5 bins; the
+# limit was set before the first card run, which measured 1.85e-2 on an
+# H100); the detector's loss terms within DET_LOSS_RTOL
+# (4.2e-6 measured on an H100, from batch 1 against batch 2 convolutions
+# and flax's two-pass batch statistics against F.batch_norm), its grad norm
+# within DET_GRAD_NORM_RTOL and the BN running statistics within
+# P_STATS_RTOL. Then two liso_cli workers over one log
+# dir, cut in step counts only (P_CLI_KV: rounds of P_CLI_SPR steps,
+# P_CLI_STEPS in all).
+P_WORLD, P_WARMUP, P_STEPS, P_PROFILED = 2, 2, 8, 2
+P_BIAS_RTOL, P_CUMSUM_REL = 1e-6, 2e-2
+P_STATS_RTOL = 1e-5
+P_CLI_SPR, P_CLI_STEPS = 4, 6
+P_CLI_KV = [["optimization", "rounds", "steps_per_round", str(P_CLI_SPR)],
+            ["optimization", "num_training_steps", str(P_CLI_STEPS)]]
+P_RANKS_TIMEOUT_S, P_CLI_TIMEOUT_S = 300, 300
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -272,6 +321,11 @@ TRAIN_GRAD_NORM_RTOL = 2e-2
 # convs: flow (meters, one coarse pixel is 1.5625 m) within FLOW_ATOL.
 FLOW_ATOL = 0.05
 PROBS_ATOL = 1e-3
+
+
+# wall seconds of this process in profiler sessions, their processing
+# included, by the function that ran them
+PROFILER_S = {"profile_window": 0.0, "kernel_only_ms": 0.0}
 
 
 def emit(obj):
@@ -326,6 +380,7 @@ def kernel_only_ms(fn, kernel, reps=20, sessions=6):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     for _ in range(sessions):
@@ -343,6 +398,7 @@ def kernel_only_ms(fn, kernel, reps=20, sessions=6):
                 us += dev_us
                 count += ev.count
         if count:
+            PROFILER_S["kernel_only_ms"] += time.perf_counter() - t0
             return us / count / 1e3
     fail(f"the profiler saw no launch of {kernel} in {reps} calls, in "
          f"{sessions} sessions")
@@ -1241,7 +1297,8 @@ def phase_train(kernels):
     # sample shows such a session up
     counts, dev_ms, rows, host_rows = confirm_launches(
         lambda: trainer.train_step(batch),
-        {**{k: 0 for k in launches}, **per_step}, "a SLIM train step")
+        {**{k: 0 for k in launches}, **per_step}, "a SLIM train step",
+        host=True)
     second_dev_ms = profile_window(lambda: trainer.train_step(batch))[1]
     restore(trainer, snap)
     mk = trainer.train_step(batch)
@@ -1366,7 +1423,7 @@ def phase_detect_train(kernels):
     zero = {k: 0 for k in kernels.launches}
     counts, dev_ms, rows, host_rows = confirm_launches(
         lambda: trainer.train_step(pts, valid, target), {**zero, **per_step},
-        "a detector train step")
+        "a detector train step", host=True)
     second_dev_ms = profile_window(
         lambda: trainer.train_step(pts, valid, target))[1]
     # kernel step against plain step under cuDNN's deterministic algorithms,
@@ -1474,12 +1531,12 @@ def state_equal(a, b) -> list:
     return [] if a == b else [f"{a!r} != {b!r}"]
 
 
-def confirm_launches(fn, expect, what):
-    """profile_window(fn), whose launch counts must equal `expect`; a
+def confirm_launches(fn, expect, what, host=False):
+    """profile_window(fn, host), whose launch counts must equal `expect`; a
     profiler session that drops launches is repeated, up to 3 in all."""
     seen = []
     for _ in range(3):
-        prof = profile_window(fn)
+        prof = profile_window(fn, host)
         if prof[0] == expect:
             return prof
         seen.append(prof[0])
@@ -1959,6 +2016,7 @@ def phase_mining(kernels):
         res["round0"] = r0
 
         # round 0 on the first frames: the card against the port on the CPU
+        parts = {"round0": time.perf_counter() - t_phase}
         ds16 = copy.copy(train_ds)
         ds16.get_consecutive_sample_idxs_for_sequence = (
             lambda seq_of_idx=0: list(range(M_CPU_FRAMES)))
@@ -1984,6 +2042,7 @@ def phase_mining(kernels):
                  f"tracks/boxes {n16}, max diff {d16}")
 
         # round 1: the detector in chunks of 8 frames
+        parts["round0_card_vs_cpu"] = time.perf_counter() - t_phase - sum(parts.values())
         det = loop.trainer
         with torch.no_grad():
             det.params["model.sep_head.dims_final.bias"] += M_DIMS_BIAS
@@ -2063,10 +2122,13 @@ def phase_mining(kernels):
                 or max(d1.values()) > DET_BOX_ATOL):
             fail(f"round 1, kernels vs plain: {r1['kernel_vs_plain']}")
         res["round1"] = r1
+        parts["round1"] = time.perf_counter() - t_phase - sum(parts.values())
         res["smoothing_one_track"] = smoothing_on_one_track()
+        parts["smoothing"] = time.perf_counter() - t_phase - sum(parts.values())
     finally:
         tmp.cleanup()
     res["phase_s"] = time.perf_counter() - t_phase
+    res["parts_s"] = parts
     # the eval phase's inputs: round 0's mined DB and round 1's detector
     return kres, res, {"mined_db_round0": mined0, "detector": det}
 
@@ -2555,7 +2617,8 @@ def run_lines(out):
 def phase_rounds(kernels):
     """The rounds loop as `liso_cli -c bev_100m_512 centerpoint liso` runs
     it, cut only in its step counts (R_KV), on the 64-frame drive; then the
-    same command resumed from the step-8 checkpoint in its own process."""
+    same command resumed from the step-R_SPR checkpoint in its own
+    process."""
     import contextlib
     import io
     import shutil
@@ -2659,10 +2722,10 @@ def phase_rounds(kernels):
         n_train = len(loop.train_dataset_factory(None))
         chunks = -(-n_train // M_CHUNK)
         # K1: each train step, each detector mining chunk (rounds 1, 2),
-        # each validate's predict_step (val + val-on-train, 2 validates);
-        # the fused VJP: each train step
+        # the final validate's predict_step (val + val-on-train); the fused
+        # VJP: each train step
         expect = {**zero, "grid_scatter_max_occ": R_STEPS + 2 * chunks
-                  + 2 * (n_val + n_train), "scatter_max_vjp": R_STEPS}
+                  + n_val + n_train, "scatter_max_vjp": R_STEPS}
         if launches != expect:
             fail(f"rounds loop launches {launches}, expected {expect}")
         mined, resets = run_lines(out.getvalue())
@@ -2697,7 +2760,7 @@ def phase_rounds(kernels):
             fail(f"rounds loop losses {losses}")
         if rec.rounds[0]["boxes"] < 1:
             fail("round 0 mined no box: the paste path would not run")
-        if [v["step"] for v in rec.validates] != [R_VAL, R_STEPS]:
+        if [v["step"] for v in rec.validates] != [R_STEPS]:
             fail(f"validates at {[v['step'] for v in rec.validates]}")
         ckpts = Path(log_dir) / "ckpts"
         steps = sorted(int(p.name) for p in ckpts.iterdir() if p.name.isdigit())
@@ -2749,7 +2812,8 @@ def phase_rounds(kernels):
             "device_busy_share": dev_ms / statistics.median(step_ms),
             "device_ms_by_family": families(rows)}
 
-        # 5. save and restore: the step-16 checkpoint and the DBs beside it
+        # 5. save and restore: the step-R_SNAP_STEP checkpoint and the DBs
+        # beside it
         # into a fresh loop, bitwise
         snap16 = rec.snap
         rdir = Path(tmp.name) / "restore"
@@ -2785,7 +2849,7 @@ def phase_rounds(kernels):
 
         # 6. the resume, in its own process: step 8's checkpoint and rounds
         # 0-1's DBs; it continues at step 9 with round_idx 2, mines round 2
-        # and resets at step 16, and saves 16 and 17
+        # and resets at step 2 R_SPR, and saves 2 R_SPR and R_STEPS
         resume = Path(tmp.name) / "resume"
         shutil.copytree(ckpts / str(R_SPR), resume / "ckpts" / str(R_SPR))
         shutil.copy(ckpts / "format_version", resume / "ckpts")
@@ -3085,6 +3149,434 @@ def phase_detectors(kernels):
     return kres, res
 
 
+# ---------------------------------------------------------------------------
+# The parallel phase: data parallel over a process group
+# ---------------------------------------------------------------------------
+def p_slim_trainer(group):
+    """The train phase's SLIM trainer (slim_liso, bf16, RMSprop, seed 0),
+    its batch split over `group` when one is given."""
+    import torch
+
+    from liso_tpu_torch.ops.bev import BevSetup
+    from liso_tpu_torch.train.slim_train import SlimTrainer
+
+    return SlimTrainer(
+        BevSetup((T_RANGE, T_RANGE), (T_GRID, T_GRID)), num_iters=T_ITERS,
+        predict_weight_for_static_aggregation="sigmoid",
+        use_static_aggr_flow_for_aggr_flow=True, compute_dtype=torch.bfloat16,
+        seed=0, group=group, device="cuda")
+
+
+def p_slim_batch():
+    """The JAX train benchmark's clouds (bench_clouds) at batch P_WORLD, on
+    the host: numpy RandomState(0), 65536 points a frame uniform in a cube
+    of +-58 m, all valid, identity odometry."""
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.data.sample import FlowSample, PointCloud
+
+    rng = np.random.RandomState(0)
+    half = 0.5 * T_RANGE - 2.0
+    pcs = [PointCloud(
+        torch.from_numpy(rng.uniform(-half, half, (P_WORLD, T_PTS, 4))
+                         .astype(np.float32)),
+        torch.ones(P_WORLD, T_PTS, dtype=torch.bool)) for _ in range(2)]
+    eye = torch.eye(4).expand(P_WORLD, 4, 4).contiguous()
+    return FlowSample(pcs[0], pcs[1], eye, eye)
+
+
+def p_step(trainer, batch, slim: bool) -> dict:
+    """One train step: SLIM takes a FlowSample, the detector (points,
+    valid, target boxes)."""
+    return trainer.train_step(batch) if slim else trainer.train_step(*batch)
+
+
+def p_first_step(trainer, batch, slim: bool) -> dict:
+    """One step from the trainer's initial state: its metrics, and the
+    threshold state (SLIM) or the BN running statistics (detector)."""
+    m = p_step(trainer, batch, slim)
+    out = {"metrics": {k: float(v) for k, v in m.items()}}
+    if slim:
+        out["bias_counter"] = float(trainer.movavg.bias_counter)
+        out["importance_cumsum"] = trainer.movavg.importance.double().cumsum(0).cpu()
+    else:
+        out["buffers"] = {k: v.detach().cpu().clone()
+                          for k, v in trainer.model.named_buffers()}
+    return out
+
+
+def p_timed_steps(trainer, batch, slim: bool, kernels) -> dict:
+    """P_WARMUP - 1 more warm-up steps (the first step was the first),
+    then P_STEPS timed steps, each awaited, with the launch counts and the
+    collectives' host time reset just before and read just after."""
+    import torch
+
+    from liso_tpu_torch.parallel import mesh
+
+    for _ in range(P_WARMUP - 1):
+        p_step(trainer, batch, slim)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    mesh.reset_collective_stats()
+    ms = []
+    for _ in range(P_STEPS):
+        t0 = time.perf_counter()
+        p_step(trainer, batch, slim)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms_median": statistics.median(ms), "step_ms_max": max(ms),
+            "step_ms": ms, "launches": dict(kernels.launches),
+            "collectives": dict(mesh.collective_stats),
+            "collective_ms_per_step": mesh.collective_stats["seconds"] * 1e3
+            / P_STEPS,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def p_step_launches(kernels) -> dict:
+    """Each kernel's launches in one SLIM and one CenterPoint train step."""
+    zero = {k: 0 for k in kernels.launches}
+    return {
+        "slim": {**zero, "grid_scatter_max_occ": 2,
+                 "corr_window_fwd": 2 * T_ITERS, "scatter_max_vjp": 2,
+                 "grid_reduce_add_c1": 1, "corr_window_bwd": 2 * T_ITERS,
+                 "knn_banded": 2},
+        "det": {**zero, "grid_scatter_max_occ": 1, "scatter_max_vjp": 1},
+    }
+
+
+def parallel_rank(group, slim_batch, det_batch, det_kwargs):
+    """One rank of the parallel phase (a spawned process): the SLIM and
+    then the CenterPoint step on this rank's shard of the global batch:
+    the first step (compared with the one-process step), the timed steps,
+    and up to P_PROFILED steps on every rank, rank 0's under the profiler,
+    until its profiler sees every launch of the step (rank 0 broadcasts
+    whether it did, so that every rank runs the same steps: each step
+    meets the others in its collectives)."""
+    import torch
+
+    from liso_tpu_torch import kernels
+    from liso_tpu_torch.parallel import mesh
+    from liso_tpu_torch.train.detector_train import DetectorTrainer
+    from liso_tpu_torch.train.liso_loop import cudnn_deterministic
+
+    rank = torch.distributed.get_rank(group)
+    expect = p_step_launches(kernels)
+
+    def on_card(tree):
+        return mesh.shard_batch(group, mesh.map_tree(lambda t: t.cuda(), tree))
+
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    for name, make, batch, slim in (
+            ("slim", lambda: p_slim_trainer(group), slim_batch, True),
+            ("det", lambda: DetectorTrainer(**det_kwargs, group=group,
+                                            device="cuda"), det_batch, False)):
+        with cudnn_deterministic(not slim):
+            t1 = time.perf_counter()
+            trainer, batch = make(), on_card(batch)
+            t2 = time.perf_counter()
+            r = p_first_step(trainer, batch, slim)
+            t3 = time.perf_counter()
+            r.update(p_timed_steps(trainer, batch, slim, kernels))
+            t4 = time.perf_counter()
+            profiled = []
+            for _ in range(P_PROFILED):
+                if rank == 0:
+                    counts, dev_ms, _, _ = profile_window(
+                        lambda: p_step(trainer, batch, slim))
+                    profiled.append({"launches": counts, "device_ms": dev_ms})
+                    seen = [counts == expect[name]]
+                else:
+                    p_step(trainer, batch, slim)
+                    seen = [None]
+                torch.distributed.broadcast_object_list(seen, src=0,
+                                                        group=group)
+                if seen[0]:
+                    break
+            r["profiled"] = profiled
+            r["parts_s"] = {"build": t2 - t1, "first_step": t3 - t2,
+                            "timed_steps": t4 - t3,
+                            "profiled_steps": time.perf_counter() - t4}
+        out[name] = r
+        del trainer
+        torch.cuda.empty_cache()
+    out["steps_s"] = time.perf_counter() - t0
+    return out
+
+
+def p_det_batch():
+    """The rounds cell's first batch (`bev_100m_512 centerpoint liso`,
+    batch 2, n_max 65536, 512^2 cells) as `_prepare_batch` gives it, on the
+    host, and the DetectorTrainer arguments of that preset."""
+    import tempfile
+
+    from liso_tpu_torch.cli.common import DEFAULT_CFG
+    from liso_tpu_torch.cli.slim_cli import build_datasets, make_train_dataset
+    from liso_tpu_torch.data.pipeline import Prefetcher
+    from liso_tpu_torch.parallel.mesh import map_tree
+    from liso_tpu_torch.train import liso_loop
+    from liso_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config(DEFAULT_CFG, ["bev_100m_512", "centerpoint", "liso"])
+    ds_cfg = build_datasets(cfg, False, target="object")[0].cfg
+    with tempfile.TemporaryDirectory(prefix="parallel_", dir=OUT_DIR) as tmp:
+        loop = liso_loop.LisoSelfTraining(cfg, lambda db: None, None, tmp,
+                                          data_cfg=ds_cfg, device="cuda")
+        loader = Prefetcher(make_train_dataset(cfg, ds_cfg, False),
+                            batch_size=P_WORLD, num_workers=1)
+        it = iter(loader)
+        try:
+            batch = loop._prepare_batch(next(it))
+        finally:
+            it.close()
+            loader.close()
+    kw = {"bev": loop.bev, "box_cfg": loop.box_cfg,
+          "max_lr": float(cfg.optimization.learning_rate),
+          "total_steps": D_TOTAL_STEPS, "seed": int(cfg.seed) + 1}
+    return map_tree(lambda t: t.cpu(), batch), kw
+
+
+def p_rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def p_liso_cli_workers(tmp: Path, meanwhile) -> tuple:
+    """Two `liso_cli` processes on the card over one log dir
+    (--world_size 2 --worker_id 0/1), cut in step counts only (P_CLI_KV):
+    mining at 0 and P_CLI_SPR, the replica check at P_CLI_SPR and at the
+    end. The mined shards must be disjoint, both workers' merged DBs equal
+    (their printed digests), and the parameter digests equal at every
+    boundary. The synthetic drive is one sequence, so worker 1's shard is
+    empty; two non-empty shards are `meanwhile`'s (the dry run), which
+    runs while the workers do. Returns the workers' record and what
+    `meanwhile()` returned."""
+    log_dir = tmp / "liso_shared"
+    argv = ["-c", "bev_100m_512", "centerpoint", "liso", "--world_size", "2",
+            "--log_dir", str(log_dir)]
+    for kv in P_CLI_KV:
+        argv += ["-kv", *kv]
+    t0 = time.perf_counter()
+    procs = []
+    for w in range(2):
+        f = open(tmp / f"worker{w}.log", "w")
+        procs.append((f, subprocess.Popen(
+            [sys.executable, "-m", "liso_tpu_torch.cli.liso_cli", *argv,
+             "--worker_id", str(w)],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, text=True)))
+    try:
+        t1 = time.perf_counter()
+        beside = meanwhile()
+        beside_s = time.perf_counter() - t1
+        codes = [p.wait(timeout=P_CLI_TIMEOUT_S) for _, p in procs]
+    finally:
+        for f, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    wall_s = time.perf_counter() - t0
+    logs = [(tmp / f"worker{w}.log").read_text() for w in range(2)]
+    if codes != [0, 0]:
+        fail(f"liso_cli workers exited {codes}: "
+             + " | ".join(lg[-1500:] for lg in logs))
+    from liso_tpu_torch.tracker.dbs import load_mined_boxes_db
+
+    merged = [[ln.split("DB digest ")[1] for ln in lg.splitlines()
+               if "DB digest" in ln] for lg in logs]
+    rounds = sorted(int(p.name.split("_")[-1])
+                    for p in log_dir.glob("mined_round_*"))
+    shards = {}
+    for r in rounds:
+        dbs = [load_mined_boxes_db(
+            log_dir / f"mined_round_{r}" / f"tracked_worker{w}.npz")
+            for w in range(2)]
+        shards[r] = {"samples": [len(db) for db in dbs],
+                     "boxes": [sum(len(v["track_id"]) for v in db.values())
+                               for db in dbs],
+                     "disjoint": not set(dbs[0]) & set(dbs[1])}
+    syncs = {}
+    for d in sorted(log_dir.glob("param_sync_step_*")):
+        digests = [(d / f"digest_worker{w}").read_text() for w in range(2)]
+        syncs[int(d.name.split("_")[-1])] = digests[0] == digests[1]
+    res = {"argv": argv, "wall_s": wall_s, "meanwhile_s": beside_s,
+           "merged_db_digests": merged,
+           "mined_rounds": rounds, "shards": shards,
+           "param_digests_equal_at": syncs}
+    want_rounds = list(range(0, P_CLI_STEPS, P_CLI_SPR))
+    want_syncs = [s for s in (*want_rounds, P_CLI_STEPS) if s > 0]
+    if rounds != list(range(len(want_rounds))):
+        fail(f"liso_cli workers mined rounds {rounds}, expected "
+             f"{list(range(len(want_rounds)))}")
+    if not all(s["disjoint"] for s in shards.values()):
+        fail(f"the workers' mined shards overlap: {shards}")
+    if len(merged[0]) != len(want_rounds) or merged[0] != merged[1]:
+        fail(f"the workers' merged DB digests differ: {merged}")
+    if sorted(syncs) != want_syncs or not all(syncs.values()):
+        fail(f"parameter digests {syncs}, expected equal at {want_syncs}")
+    return res, beside
+
+
+def phase_parallel(kernels):
+    """Data parallel on the one card: (a) the SLIM step and (b) the
+    CenterPoint step with the global batch of P_WORLD split over P_WORLD
+    gloo ranks, against the one-process step on the full batch; (c) one
+    CenterPoint step over an nccl group of one rank, bitwise equal to the
+    step without a group; (d) two liso_cli workers over one log dir and,
+    while they run, `dryrun_multichip(2)` on the card (two ranks' SLIM and
+    CenterPoint steps, and two rounds-loop workers that each mine one
+    sequence of a two-sequence drive)."""
+    import tempfile
+
+    import torch
+
+    from liso_tpu_torch.parallel import mesh
+    from liso_tpu_torch.parallel.dryrun import dryrun_multichip
+    from liso_tpu_torch.train.detector_train import DetectorTrainer
+    from liso_tpu_torch.train.liso_loop import cudnn_deterministic
+
+    t_phase = time.perf_counter()
+    parts = {}
+    per_step = p_step_launches(kernels)
+    slim_batch = p_slim_batch()
+    det_batch, det_kw = p_det_batch()
+    torch.cuda.empty_cache()
+    parts["batches"] = time.perf_counter() - t_phase
+    res = {"phase": "parallel", "world": P_WORLD, "backend": "gloo",
+           "slim": {"grid": T_GRID, "range_m": T_RANGE, "points": T_PTS,
+                    "global_batch": P_WORLD, "dtype": "bf16",
+                    "flags": "slim_liso"},
+           "det": {"configs": "bev_100m_512 centerpoint liso", "grid": D_GRID,
+                   "n_max": M_PTS, "global_batch": P_WORLD, "dtype": "fp32",
+                   "target_boxes": int(det_batch[2].valid.sum()),
+                   "cudnn_deterministic": True},
+           "warmup_steps": P_WARMUP, "steps": P_STEPS,
+           "tolerance": {"slim_loss_rtol": TRAIN_LOSS_RTOL,
+                         "slim_grad_norm_rtol": TRAIN_GRAD_NORM_RTOL,
+                         "slim_bias_counter_rtol": P_BIAS_RTOL,
+                         "slim_importance_cumsum_rel": P_CUMSUM_REL,
+                         "det_loss_rtol": DET_LOSS_RTOL,
+                         "det_grad_norm_rtol": DET_GRAD_NORM_RTOL,
+                         "det_stats_rtol": P_STATS_RTOL}}
+    with tempfile.TemporaryDirectory(prefix="parallel_", dir=OUT_DIR) as tmp:
+        tmp = Path(tmp)
+        # (a), (b): the ranks, then the one-process steps on the free card
+        t0 = time.perf_counter()
+        ranks = mesh.RankProcesses(parallel_rank, P_WORLD,
+                                   (slim_batch, det_batch, det_kw),
+                                   backend="gloo", workdir=tmp / "ranks",
+                                   timeout_s=P_RANKS_TIMEOUT_S).join()
+        res["ranks_wall_s"] = parts["ranks"] = time.perf_counter() - t0
+        res["ranks_steps_s"] = [rk["steps_s"] for rk in ranks]
+        res["ranks_parts_s"] = [{n: rk[n]["parts_s"] for n in ("slim", "det")}
+                                for rk in ranks]
+        t0 = time.perf_counter()
+        one = {}
+        for name, slim in (("slim", True), ("det", False)):
+            with cudnn_deterministic(not slim):
+                trainer = (p_slim_trainer(None) if slim else
+                           DetectorTrainer(**det_kw, device="cuda"))
+                batch = mesh.map_tree(lambda t: t.cuda(),
+                                      slim_batch if slim else det_batch)
+                one[name] = p_first_step(trainer, batch, slim)
+                one[name].update(p_timed_steps(trainer, batch, slim, kernels))
+            del trainer, batch
+            torch.cuda.empty_cache()
+        parts["one_process"] = time.perf_counter() - t0
+
+        for name in ("slim", "det"):
+            r = res[name]
+            r["one_process"] = {k: one[name][k] for k in (
+                "metrics", "step_ms_median", "step_ms_max", "peak_memory_gb")}
+            r["ranks"] = [{k: rk[name][k] for k in (
+                "metrics", "step_ms_median", "step_ms_max", "step_ms",
+                "launches", "collectives", "collective_ms_per_step",
+                "peak_memory_gb")} for rk in ranks]
+            want = one[name]["metrics"]
+            for rk in ranks:
+                got = rk[name]
+                if got["metrics"] != ranks[0][name]["metrics"]:
+                    fail(f"{name}: ranks disagree on the step's metrics")
+                expect = {k: v * P_STEPS for k, v in per_step[name].items()}
+                if got["launches"] != expect:
+                    fail(f"{name} rank {rk['rank']}: launches {got['launches']}, "
+                         f"expected {expect}")
+            prof = ranks[0][name]["profiled"]
+            r["profiled"] = prof
+            if not any(p["launches"] == per_step[name] for p in prof):
+                fail(f"{name}: rank 0's profiler saw {[p['launches'] for p in prof]}"
+                     f", expected {per_step[name]}")
+            got = ranks[0][name]
+            if name == "slim":
+                limits = {k: (TRAIN_GRAD_NORM_RTOL if k == "grad_norm"
+                              else TRAIN_LOSS_RTOL) for k in want if k != "lr"}
+            else:
+                limits = {k: (DET_GRAD_NORM_RTOL if k == "grad_norm"
+                              else DET_LOSS_RTOL) for k in want if k != "lr"}
+            r["rel_vs_one_process"] = {k: p_rel(got["metrics"][k], want[k])
+                                       for k in limits}
+            bad = {k: v for k, v in r["rel_vs_one_process"].items()
+                   if not v <= limits[k]}
+            if got["metrics"]["lr"] != want["lr"]:
+                bad["lr"] = (got["metrics"]["lr"], want["lr"])
+            if name == "slim":
+                r["bias_counter"] = (got["bias_counter"], one[name]["bias_counter"])
+                c1, c0 = got["importance_cumsum"], one[name]["importance_cumsum"]
+                r["importance_cumsum_rel"] = float((c1 - c0).norm() / c0.norm())
+                if not p_rel(*r["bias_counter"]) <= P_BIAS_RTOL:
+                    bad["bias_counter"] = r["bias_counter"]
+                if not r["importance_cumsum_rel"] <= P_CUMSUM_REL:
+                    bad["importance_cumsum"] = r["importance_cumsum_rel"]
+            else:
+                stats = {k: float((got["buffers"][k].double() - w.double()).norm()
+                                  / w.double().norm().clamp(min=1e-30))
+                         for k, w in one[name]["buffers"].items()}
+                r["stats_rel_max"] = max(stats.values())
+                if not r["stats_rel_max"] <= P_STATS_RTOL:
+                    bad["bn_stats"] = r["stats_rel_max"]
+            if bad:
+                fail(f"{name}: the {P_WORLD}-rank step against the one-process "
+                     f"step: {bad}")
+        res["launches"] = {k: sum(rk[n]["launches"][k] for rk in ranks
+                                  for n in ("slim", "det"))
+                           for k in kernels.launches}
+
+        # (c) nccl over one rank: the same bits as the step without a group
+        t0 = time.perf_counter()
+        det_gpu = mesh.map_tree(lambda t: t.cuda(), det_batch)
+        states = {}
+        with cudnn_deterministic():
+            group = mesh.make_mesh(1, 0, "nccl", tmp / "nccl")
+            try:
+                for key, g in (("nccl", group), ("none", None)):
+                    trainer = DetectorTrainer(**det_kw, group=g, device="cuda")
+                    m = trainer.train_step(*det_gpu)
+                    states[key] = (to_host(trainer.state_dict()),
+                                   {k: float(v) for k, v in m.items()})
+                    del trainer
+            finally:
+                mesh.destroy_mesh()
+        diff = state_equal(states["nccl"][0], states["none"][0])
+        res["nccl_world_1"] = {"state_differs_at": diff,
+                               "metrics_equal": states["nccl"][1] == states["none"][1]}
+        if diff or states["nccl"][1] != states["none"][1]:
+            fail(f"the nccl step of one rank differs from the step without a "
+                 f"group: {res['nccl_world_1']}")
+        torch.cuda.empty_cache()
+        parts["nccl"] = time.perf_counter() - t0
+
+        # (d) two liso_cli workers over one log dir, the dry run meanwhile
+        t0 = time.perf_counter()
+        res["liso_cli"], res["dryrun_multichip"] = p_liso_cli_workers(
+            tmp, lambda: dryrun_multichip(P_WORLD, device="cuda",
+                                          workdir=tmp))
+        parts["liso_cli_and_dryrun"] = time.perf_counter() - t0
+    res["parts_s"] = parts
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def run_path(serve, slim, det, frames, valid, plain=False):
     """fused_forward, then encode + chained fused_streaming steps."""
     import torch
@@ -3115,16 +3607,23 @@ def run_path(serve, slim, det, frames, valid, plain=False):
     }
 
 
-def profile_window(fn):
+def profile_window(fn, host=False):
     """Run `fn` once under torch.profiler. Returns the launches of each
     kernel seen by the profiler, the device time (sum over device kernels,
-    ms), the device time by kernel name and the host time by operator
-    (self CPU us, with the profiler's own cost in it)."""
+    ms), the device time by kernel name and, with `host`, the host time by
+    operator (self CPU us, with the profiler's own cost in it; else an
+    empty list). Without `host` the profiler records the device activity
+    alone, which takes it less than half the time to process (a SLIM train
+    step: 4.0-4.4 s against 10.7-11.6 s on an H100, the same launches and
+    device time). Its wall time, the processing included, adds to
+    PROFILER_S."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host else []) + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     from liso_tpu_torch import kernels
@@ -3133,7 +3632,7 @@ def profile_window(fn):
     device_us = 0.0
     rows, host_rows = [], []
     for ev in prof.key_averages():
-        if ev.self_cpu_time_total > 0:
+        if host and ev.self_cpu_time_total > 0:
             host_rows.append((ev.self_cpu_time_total, ev.count, ev.key))
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
@@ -3146,6 +3645,7 @@ def profile_window(fn):
                 counts[k] += ev.count
     rows.sort(reverse=True)
     host_rows.sort(reverse=True)
+    PROFILER_S["profile_window"] += time.perf_counter() - t0
     return counts, device_us / 1e3, rows, host_rows
 
 
@@ -3329,6 +3829,9 @@ def main() -> int:
     for r in dtkres:
         emit({"phase": "kernel", "path": "detectors", **r})
         by_name[r["name"]]["detectors_shape"] = shape_entry(r)
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(kernels)
+    emit({**parallel, "nvidia_smi": smi})
     for r in kres:
         name = r["name"]
         r["launches_by_path"] = {
@@ -3341,7 +3844,8 @@ def main() -> int:
                      + mining["round1"]["launches"][name]),
             "eval": evaluation["launches"][name],
             "rounds": rounds["launches"][name],
-            "detectors": detectors["launches"][name]}
+            "detectors": detectors["launches"][name],
+            "parallel": parallel["launches"][name]}
         r["launches"] = sum(r["launches_by_path"].values())
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump({"device": device, "nvidia_smi": smi, "kernels": kres,
@@ -3353,6 +3857,7 @@ def main() -> int:
                    "eval_kernels": vkres, "eval": evaluation,
                    "rounds_kernels": rkres, "rounds": rounds,
                    "detectors_kernels": dtkres, "detectors": detectors,
+                   "parallel": parallel,
                    "ptxas": ptxas,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     with open(OUT_DIR / "chip_smoke_profile.txt", "w") as f:
@@ -3402,6 +3907,7 @@ def main() -> int:
           "slim_experiment_s": experiment["phase_s"],
           "mining_s": mining["phase_s"], "eval_s": evaluation["phase_s"],
           "rounds_s": rounds["phase_s"], "detectors_s": detectors["phase_s"],
+          "parallel_s": parallel["phase_s"], "profiler_s": PROFILER_S,
           "nvidia_smi": smi})
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})
     print(smi, flush=True)

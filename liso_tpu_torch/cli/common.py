@@ -37,6 +37,10 @@ def parse_cli_args(argv=None):
                    help="shrink the run and dump cProfile stats")
     p.add_argument("--summary_dir", default=str(
         Path(tempfile.gettempdir()) / "liso_tpu_torch_logs"))
+    p.add_argument("--log_dir", default=None,
+                   help="this run's log dir (default: <summary_dir>/<exp>/"
+                        "<config hash>/<time>); workers of one multi-worker "
+                        "run share it")
     p.add_argument("--load_checkpoint", default=None)
     p.add_argument("--finetune", action="store_true")
     p.add_argument("--inference-only", dest="inference_only",
@@ -132,7 +136,8 @@ def load_cfg_make_logdir(args, exp_name: str):
     set_seed(int(cfg.seed))
     cfg_hash = get_config_hash(cfg)[:5]
     stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-    log_dir = Path(args.summary_dir) / exp_name / cfg_hash / stamp
+    log_dir = (Path(args.log_dir) if args.log_dir
+               else Path(args.summary_dir) / exp_name / cfg_hash / stamp)
     log_dir.mkdir(parents=True, exist_ok=True)
     save_config(cfg, log_dir / "config.yml")
     return cfg, log_dir

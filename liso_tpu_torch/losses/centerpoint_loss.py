@@ -1,13 +1,18 @@
 """CenterPoint detection losses: penalty-reduced focal heatmap loss and L1
 heads (port of liso_tpu/losses/centerpoint_loss.py). Boolean indexing is
 replaced by masked sums (same math, static shapes); every reduction divides
-by num_pos = max(1, number of center cells), as the reference does."""
+by num_pos = max(1, number of center cells), as the reference does. With a
+process group (`group`) the counts are the global batch's over the ranks,
+and each term is the rank's share of the global batch's term
+(parallel/mesh.py)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from liso_tpu_torch.parallel.mesh import batch_total
 
 FOCAL_GAMMA, FOCAL_ALPHA = 2.0, 0.5
 
@@ -17,11 +22,12 @@ def focal_heatmap_loss(
     gt_probs: torch.Tensor,  # [B, h, w, 1] gaussian target
     center_mask: torch.Tensor,  # [B, h, w] bool
     ignore_mask: Optional[torch.Tensor] = None,  # [B, h, w] bool
+    group=None,
 ) -> torch.Tensor:
     """Penalty-reduced focal loss with (1 - gt)^4 negative weighting:
     positives at the center cells, negatives elsewhere, ignored cells in
     neither."""
-    num_pos = center_mask.sum().float().clamp(min=1.0)
+    num_pos = batch_total(center_mask.sum(), group).float().clamp(min=1.0)
     pos_loss = FOCAL_ALPHA * torch.sigmoid(-pred_logits) ** FOCAL_GAMMA * (
         F.logsigmoid(pred_logits))
     neg_loss = ((1 - FOCAL_ALPHA) * torch.sigmoid(pred_logits) ** FOCAL_GAMMA
@@ -42,6 +48,7 @@ def centerpoint_loss(
     center_mask: torch.Tensor,
     ignore_mask: Optional[torch.Tensor] = None,
     rotation_method: str = "vector",
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """The reference's loss with its quirks kept: the rot loss is a
     weight-normalised L1 on the raw activated rot channels, x10; dims and
@@ -52,21 +59,23 @@ def centerpoint_loss(
         raise ValueError(rotation_method)
     losses = {}
     m = center_mask if ignore_mask is None else center_mask & ~ignore_mask
-    num_pos = center_mask.sum().float().clamp(min=1.0)
+    num_pos = batch_total(center_mask.sum(), group).float().clamp(min=1.0)
 
     losses["probs"] = focal_heatmap_loss(
-        raw_activated_maps["probs"], gt_maps["probs"], center_mask, ignore_mask)
+        raw_activated_maps["probs"], gt_maps["probs"], center_mask, ignore_mask,
+        group)
 
     # the reference's per-cell rot weights are all 1 here: max(1, 0.1) * m
     w = m.float()
-    w = w / w.sum().clamp(min=1.0)
+    w = w / batch_total(w.sum(), group).clamp(min=1.0)
     rot_l1 = (raw_activated_maps["rot"] - gt_maps["rot"]).abs().sum(-1)
     losses["rot"] = 10.0 * (rot_l1 * w).sum()
 
     for attr in ("dims", "pos"):
         pred = decoded_pred_maps[attr]
         err = (pred - gt_maps[attr][..., : pred.shape[-1]]).abs()
-        cnt = (m.sum() * err.shape[-1]).float().clamp(min=1.0)
+        cnt = (batch_total(m.sum(), group)
+               * err.shape[-1]).float().clamp(min=1.0)
         losses[attr] = torch.where(m[..., None], err, 0.0).sum() / cnt / num_pos
 
     losses["total"] = sum(losses.values())

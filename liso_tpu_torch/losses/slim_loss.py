@@ -4,6 +4,11 @@ The 1-NN of every warped point runs as ONE call per direction over all RAFT
 iterations and flow types (`batched_knn_for_iterations`): the banded kernel
 K6 on the card, the exact brute force on the CPU (ops/knn_banded.py).
 Padded points are handled with masks.
+
+Every batch-wide reduction takes an optional process group (`group`):
+with one, the loss is the rank's share of the global batch's loss (its
+numerators over the global denominators, parallel/mesh.py), and the
+threshold update sums its histogram over the ranks.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from liso_tpu_torch.models.slim import MovAvgState, movavg_update
 from liso_tpu_torch.models.slim_decoder import SlimPrediction
 from liso_tpu_torch.ops import transforms as tr
 from liso_tpu_torch.ops.knn_banded import nn_1_sorted_diff
+from liso_tpu_torch.parallel.mesh import batch_mean, batch_total
 
 # x-band of the banded 1-NN: twice the largest displacement of the
 # skip-frame curriculum (a 20 m/s object moves 4 m in 0.2 s), as the JAX
@@ -162,14 +168,14 @@ def batched_knn_for_iterations(preds, pca, va, pcb, vb, cfg: SlimLossCfg,
     return out
 
 
-def range_based_weights(cfg: KnnLossCfg, pc, valid):
+def range_based_weights(cfg: KnnLossCfg, pc, valid, group=None):
     if cfg.weight_slope == 0.0:
         return torch.ones_like(pc[..., 0])
     rng = torch.linalg.norm(pc[..., :3], dim=-1)
     w = (cfg.slope_sign * cfg.weight_slope * rng + cfg.weight_at_range_0).clamp(
         cfg.min_weight_clip_at, cfg.max_weight_clip_at)
-    wsum = torch.where(valid, w, 0.0).sum()
-    return (w * valid.sum() / wsum.clamp(min=1e-6)).detach()
+    wsum = batch_total(torch.where(valid, w, 0.0).sum(), group)
+    return (w * batch_total(valid.sum(), group) / wsum.clamp(min=1e-6)).detach()
 
 
 def static_points_loss(pc, valid, flow, weights, trafo):
@@ -190,17 +196,22 @@ def trafo_distance(delta_trafo, points, mask):
     return d_sqr.sum(-1) / mask.sum(-1).clamp(min=1)
 
 
-def _masked_mean(x, mask):
-    return torch.where(mask, x, 0.0).sum() / mask.sum().clamp(min=1)
+def _masked_mean(x, mask, group=None):
+    """Mean of x over the set entries of mask (the rank's share of it,
+    with a group)."""
+    return (torch.where(mask, x, 0.0).sum()
+            / batch_total(mask.sum(), group).clamp(min=1))
 
 
 def slim_loss_single_iteration(pred_fw: SlimPrediction, pred_bw: SlimPrediction,
                                pc1, valid1, pc2, valid2, movavg: MovAvgState,
                                cfg: SlimLossCfg, update_threshold: bool = True,
-                               knn_fw=None, knn_bw=None, plain: bool = False):
+                               knn_fw=None, knn_bw=None, plain: bool = False,
+                               group=None):
     """One RAFT iteration's loss. Returns (loss scalar, new movavg state,
     metrics dict). knn_fw / knn_bw: precomputed {type: {loss, dist_sqr}}
-    from `batched_knn_for_iterations`; when None the searches run here."""
+    from `batched_knn_for_iterations`; when None the searches run here.
+    With a process group the loss and metrics are the rank's shares."""
     metrics = {}
     total = pc1.new_zeros(())
 
@@ -213,17 +224,17 @@ def slim_loss_single_iteration(pred_fw: SlimPrediction, pred_bw: SlimPrediction,
             stat_bw = stat_bw.detach()
         loss_fw = _masked_mean(static_points_loss(
             pc1, valid1, pred_fw.static_flow, stat_fw, pred_fw.static_aggr_trafo),
-            valid1)
+            valid1, group)
         loss_bw = _masked_mean(static_points_loss(
             pc2, valid2, pred_bw.static_flow, stat_bw, pred_bw.static_aggr_trafo),
-            valid2)
+            valid2, group)
         static_flow_loss = 0.5 * (loss_fw + loss_bw)
         for_back = torch.einsum("bij,bjk->bik", pred_bw.static_aggr_trafo,
                                 pred_fw.static_aggr_trafo) - torch.eye(
             4, device=pc1.device)[None]
-        cycle_loss = trafo_distance(
+        cycle_loss = batch_mean(trafo_distance(
             for_back, torch.cat([pc1[..., :3], pc2[..., :3]], dim=1),
-            torch.cat([valid1, valid2], dim=1)).mean()
+            torch.cat([valid1, valid2], dim=1)), group)
         metrics["static_flow_loss"] = static_flow_loss
         metrics["for_back_static_trafo_loss"] = cycle_loss
         if cfg.static_flow_penalty_factor != 0.0:
@@ -248,24 +259,27 @@ def slim_loss_single_iteration(pred_fw: SlimPrediction, pred_bw: SlimPrediction,
     if knn_bw is None:
         knn_bw = knn_all(pred_bw, pc2, valid2, pc1, valid1)
 
-    w_fw = range_based_weights(cfg.knn, pc1, valid1)
-    w_bw = range_based_weights(cfg.knn, pc2, valid2)
+    w_fw = range_based_weights(cfg.knn, pc1, valid1, group)
+    w_bw = range_based_weights(cfg.knn, pc2, valid2, group)
 
-    flow_loss = 0.5 * (_masked_mean(w_fw * knn_fw["aggregated"]["loss"], valid1)
-                       + _masked_mean(w_bw * knn_bw["aggregated"]["loss"], valid2))
+    def mm(x, mask):
+        return _masked_mean(x, mask, group)
+
+    flow_loss = 0.5 * (mm(w_fw * knn_fw["aggregated"]["loss"], valid1)
+                       + mm(w_bw * knn_bw["aggregated"]["loss"], valid2))
     metrics["knn_flow_loss"] = flow_loss
     if cfg.knn_loss_penalty_factor != 0.0:
         total = total + flow_loss * cfg.knn_loss_penalty_factor
 
     if cfg.knn_on_dynamic_penalty != 0.0:
-        dyn_loss = 0.5 * (_masked_mean(w_fw * knn_fw["dynamic"]["loss"], valid1)
-                          + _masked_mean(w_bw * knn_bw["dynamic"]["loss"], valid2))
+        dyn_loss = 0.5 * (mm(w_fw * knn_fw["dynamic"]["loss"], valid1)
+                          + mm(w_bw * knn_bw["dynamic"]["loss"], valid2))
         metrics["dynamic_flow_loss"] = dyn_loss
         total = total + dyn_loss * cfg.knn_on_dynamic_penalty
 
     if cfg.knn_on_static_penalty != 0.0:
-        stat_loss = 0.5 * (_masked_mean(w_fw * knn_fw[static_key]["loss"], valid1)
-                           + _masked_mean(w_bw * knn_bw[static_key]["loss"], valid2))
+        stat_loss = 0.5 * (mm(w_fw * knn_fw[static_key]["loss"], valid1)
+                           + mm(w_bw * knn_bw[static_key]["loss"], valid2))
         metrics["static_knn_loss"] = stat_loss
         total = total + stat_loss * cfg.knn_on_static_penalty
 
@@ -276,7 +290,7 @@ def slim_loss_single_iteration(pred_fw: SlimPrediction, pred_bw: SlimPrediction,
             p = pred.staticness.clamp(1e-7, 1.0 - 1e-7)
             bce = -(is_static_label * torch.log(p)
                     + (1.0 - is_static_label) * torch.log(1.0 - p))
-            return _masked_mean(bce, valid)
+            return mm(bce, valid)
 
         ce_loss = 0.5 * (ce(pred_fw, knn_fw, valid1) + ce(pred_bw, knn_bw, valid2))
         metrics["ce_loss"] = ce_loss
@@ -284,7 +298,8 @@ def slim_loss_single_iteration(pred_fw: SlimPrediction, pred_bw: SlimPrediction,
 
     if cfg.use_static_aggr_flow_for_aggr_flow and update_threshold:
         movavg = movavg_update(movavg, *threshold_update_inputs(
-            pred_fw, pred_bw, knn_fw, knn_bw, valid1, valid2), plain=plain)
+            pred_fw, pred_bw, knn_fw, knn_bw, valid1, valid2), plain=plain,
+            group=group)
 
     metrics["total_loss"] = total
     return total, movavg, metrics

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from liso_tpu_torch.parallel.mesh import batch_sum, batch_total
+
 
 def same_pads(size: int, k: int, stride: int):
     """XLA 'SAME' (lo, hi) padding of one spatial dim."""
@@ -104,7 +106,10 @@ class BatchNorm(nn.Module):
       * train: the same with the batch mean and the biased variance over
         every axis but the channels, and the running statistics move as
         running = 0.99 running + 0.01 batch (flax keeps the biased
-        variance; torch's momentum is flax's 1 - momentum)."""
+        variance; torch's momentum is flax's 1 - momentum).
+    With a process group in `group` (`set_batch_norm_group`) the train
+    statistics are those of the global batch over the group's ranks, as
+    the JAX step sharded over a mesh takes them."""
 
     MOMENTUM = 0.99
 
@@ -117,6 +122,7 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.channel_dim = channel_dim
+        self.group = None
 
     def forward(self, x):
         if self.training:
@@ -136,7 +142,10 @@ class BatchNorm(nn.Module):
         biased variance (Welford's update, free of the one-pass
         E[x^2] - E[x]^2 cancellation that use_fast_variance=False avoids).
         Its buffers, run at momentum 1, receive the batch mean and the
-        UNBIASED variance; the biased one is that times (n - 1) / n."""
+        UNBIASED variance; the biased one is that times (n - 1) / n.
+        With a group: two passes over the global batch instead."""
+        if self.group is not None:
+            return self._train_forward_global(x)
         x = x.float().movedim(self.channel_dim, 1)
         n = x.numel() // x.shape[1]
         mean = torch.zeros_like(self.running_mean)
@@ -150,6 +159,40 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(self.MOMENTUM).add_(
                 (1 - self.MOMENTUM) * var)
         return y.movedim(1, self.channel_dim)
+
+    def _train_forward_global(self, x, mask=None):
+        """flax's two-pass statistics over the group's global batch (the
+        local batch without a group): the mean, then the mean of squared
+        deviations (biased), each a sum over the ranks that the gradient
+        passes through, over the global count of rows (of rows where
+        `mask` is set). Normalises with them and
+        moves the running statistics; every rank gets the same ones."""
+        x = x.float().movedim(self.channel_dim, -1)
+        dims = tuple(range(x.dim() - 1))
+        m = (torch.ones_like(x[..., :1]) if mask is None
+             else mask[..., None].to(x.dtype))
+        n = batch_total(m.sum(), self.group).clamp(min=1.0)
+        mean = batch_sum((x * m).sum(dims), self.group) / n
+        var = batch_sum(((x - mean) ** 2 * m).sum(dims), self.group) / n
+        with torch.no_grad():
+            self.running_mean.mul_(self.MOMENTUM).add_(
+                (1 - self.MOMENTUM) * mean)
+            self.running_var.mul_(self.MOMENTUM).add_(
+                (1 - self.MOMENTUM) * var)
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.movedim(-1, self.channel_dim)
+
+
+def set_batch_norm_group(module: nn.Module, group) -> nn.Module:
+    """Every BatchNorm (and MaskedBatchNorm) of `module` takes its train
+    statistics over `group`'s global batch (None: the local batch). A group
+    of one rank holds the whole batch: its norms stay local."""
+    if group is not None and torch.distributed.get_world_size(group) == 1:
+        group = None
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return module
 
 
 def init_weights(module: nn.Module, seed: int, small_std=()) -> nn.Module:

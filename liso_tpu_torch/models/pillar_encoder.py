@@ -37,7 +37,9 @@ class MaskedBatchNorm(BatchNorm):
     statistics are taken over the points where `mask` is set, with the
     biased variance, and the running statistics move with flax's momentum
     0.99 (torch's 0.01): running = 0.99 running + 0.01 batch. In eval mode
-    the running statistics normalise."""
+    the running statistics normalise. The train statistics are
+    `BatchNorm._train_forward_global`'s: the global batch's with a group,
+    the local batch's without one."""
 
     def __init__(self, c: int, eps: float = 1e-3, device=None):
         super().__init__(c, eps=eps, channel_dim=-1, device=device)
@@ -45,16 +47,7 @@ class MaskedBatchNorm(BatchNorm):
     def forward(self, x, mask=None):
         if not self.training:
             return super().forward(x)
-        x = x.float()
-        dims = tuple(range(x.dim() - 1))
-        m = mask[..., None].to(x.dtype)
-        cnt = m.sum().clamp(min=1.0)
-        mean = (x * m).sum(dims) / cnt
-        var = ((x - mean) ** 2 * m).sum(dims) / cnt
-        with torch.no_grad():
-            self.running_mean.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * mean)
-            self.running_var.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * var)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return self._train_forward_global(x, mask)
 
 
 def prepare_pillar_inputs(

@@ -17,6 +17,7 @@ from liso_tpu_torch.models.pillar_encoder import PillarEncoder
 from liso_tpu_torch.models.raft import RAFT
 from liso_tpu_torch.ops.bev import BevSetup
 from liso_tpu_torch.ops.grid_scatter import grid_reduce_add_c1
+from liso_tpu_torch.parallel.mesh import batch_total
 
 
 # ---------------------------------------------------------------------------
@@ -77,17 +78,12 @@ def _fold(importance, bias, update_weight, count, hist):
 
 
 def movavg_update(state: MovAvgState, epes_stat, epes_dyn, dynamicness,
-                  valid, plain: bool = False) -> MovAvgState:
+                  valid, plain: bool = False, group=None) -> MovAvgState:
     """One update from flat [M] inputs: improvements = epe_static -
     epe_dynamic of the valid entries, summed into dynamicness bins, EMA'd
     into the importance."""
-    res = state.importance.shape[0]
-    improvements = torch.where(valid, epes_stat - epes_dyn, 0.0)
-    hist = _histograms(improvements[None], _bins(dynamicness, valid, res)[None],
-                       res, plain)[0]
-    importance, bias = _fold(state.importance, state.bias_counter,
-                             state.update_weight, valid.sum().float(), hist)
-    return state._replace(importance=importance, bias_counter=bias)
+    return movavg_update_batched(state, epes_stat[None], epes_dyn[None],
+                                 dynamicness[None], valid[None], plain, group)
 
 
 def _histograms(improvements, bins, res, plain=False):
@@ -104,20 +100,26 @@ def _histograms(improvements, bins, res, plain=False):
 
 
 def movavg_update_batched(state: MovAvgState, epes_stat, epes_dyn,
-                          dynamicness, valid,
-                          plain: bool = False) -> MovAvgState:
+                          dynamicness, valid, plain: bool = False,
+                          group=None) -> MovAvgState:
     """The sequence of `movavg_update` calls over the rows of [I, M] inputs
     (one row per RAFT iteration) with ONE batched histogram pass; the EMA
-    folds row by row afterwards."""
+    folds row by row afterwards. With a process group the [I, res]
+    histograms and the valid counts are summed over the ranks (one
+    collective) before the fold, which every rank then runs alike."""
     res = state.importance.shape[0]
     n_iter = epes_stat.shape[0]
     improvements = torch.where(valid, epes_stat - epes_dyn, 0.0)
     hists = _histograms(improvements, _bins(dynamicness, valid, res), res,
                         plain)
+    counts = valid.sum(-1).float()
+    if group is not None:
+        summed = batch_total(torch.cat([hists, counts[:, None]], 1), group)
+        hists, counts = summed[:, :res], summed[:, res]
     importance, bias = state.importance, state.bias_counter
     for i in range(n_iter):
         importance, bias = _fold(importance, bias, state.update_weight,
-                                 valid[i].sum().float(), hists[i])
+                                 counts[i], hists[i])
     return state._replace(importance=importance, bias_counter=bias)
 
 

@@ -15,7 +15,11 @@ NMS. Both run in fp32, as the JAX trainer does: TF32 is off for cuDNN
 convolutions and cuBLAS matmuls while a step runs, and the caller's
 settings are put back after it. `state_dict()` / `load_state_dict()` carry
 the train state through `utils/checkpoint.py`; `reset_optimizer()` starts
-AdamW and the schedule again. The PointPillars and PointRCNN trainers
+AdamW and the schedule again. Given a process group (`group`,
+parallel/mesh.py), the centerpoint step takes the rank's shard of the batch
+and gives every rank the one-process step on the global batch: batch norms
+and the loss's counts reduce over the group, and the gradient is summed
+once before the update. The PointPillars and PointRCNN trainers
 (train/pointpillars_train.py, train/pointrcnn_train.py) hold the same
 state through the same class.
 """
@@ -38,10 +42,11 @@ from liso_tpu_torch.models.box_decode import (
     flatten_to_boxes,
 )
 from liso_tpu_torch.models.box_learner import BoxLearner
-from liso_tpu_torch.models.layers import init_weights
+from liso_tpu_torch.models.layers import init_weights, set_batch_norm_group
 from liso_tpu_torch.ops.bev import BevSetup
 from liso_tpu_torch.ops.boxes import Boxes
 from liso_tpu_torch.ops.nms import batched_nms
+from liso_tpu_torch.parallel.mesh import all_sum_, replicate, total_metrics
 from liso_tpu_torch.serve import resolve_device
 from liso_tpu_torch.train.slim_train import (
     adamw_update_,
@@ -55,10 +60,13 @@ class AdamWTrainState:
     """The train state of a detector trainer and its AdamW step: `model`
     (parameters and batch-norm statistics), AdamW's moments `mu` and `nu`
     and its `count` (the OneCycle schedule reads it), and the `step`.
-    A subclass builds `model` on `device` and then calls `_init_state`."""
+    A subclass builds `model` on `device` and then calls `_init_state`.
+    With a process group the state is broadcast from rank 0 and `_update`
+    sums the gradient and the loss terms over the group."""
 
     def _init_state(self, max_lr: float, total_steps: int,
-                    weight_decay: float) -> None:
+                    weight_decay: float, group=None) -> None:
+        self.group = group
         self.weight_decay = weight_decay
         self.lr_schedule = onecycle(max_lr, total_steps)
         self.params = dict(self.model.named_parameters())
@@ -66,6 +74,9 @@ class AdamWTrainState:
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.count = 0  # the optimizer's count: its schedule reads it
         self.step = 0
+        if group is not None:
+            set_batch_norm_group(self.model, group)
+            replicate(group, self.state_dict())
 
     def state_dict(self) -> dict:
         """The whole train state (live tensors, not copies): parameters and
@@ -112,6 +123,9 @@ class AdamWTrainState:
         total.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        if self.group is not None:
+            grads = all_sum_(grads, self.group)
+            losses = total_metrics(losses, self.group)
         lr = float(self.lr_schedule(self.count))
         adamw_update_(params, grads, list(self.mu.values()),
                       list(self.nu.values()), self.count, lr,
@@ -142,8 +156,13 @@ class DetectorTrainer(AdamWTrainState):
         use_baseline_parameters: bool = True,
         num_decoder_layers: int = 1,
         seed: int = 0,
+        group=None,
         device=None,
     ):
+        if group is not None and network != "centerpoint":
+            raise NotImplementedError(
+                f"a sharded {network} step: only centerpoint's is ported "
+                "(ROADMAP §A item 4b: the Hungarian stage across ranks)")
         self.device = resolve_device(device)
         self.bev = bev
         self.network = network
@@ -158,7 +177,7 @@ class DetectorTrainer(AdamWTrainState):
         self.pre_max_boxes = pre_max_boxes
         self.post_max_boxes = post_max_boxes
         self.confidence_threshold = confidence_threshold
-        self._init_state(max_lr, total_steps, weight_decay)
+        self._init_state(max_lr, total_steps, weight_decay, group)
 
     def _loss(self, points, valid, target_boxes: Boxes, ignore_mask,
               plain: bool):
@@ -175,6 +194,7 @@ class DetectorTrainer(AdamWTrainState):
             gt_maps=gt_maps, center_mask=gt_maps["center_bool_mask"],
             ignore_mask=ignore_mask,
             rotation_method=self.box_cfg.rotation_method,
+            group=self.group,
         )
 
     def _transfusion_loss(self, flat: Boxes, aux: dict, target_boxes: Boxes,

@@ -124,6 +124,24 @@ def _to_plain(cfg_node):
     return cfg_node
 
 
+def db_digest(db: Dict[str, dict]) -> str:
+    """sha256 (16 hex digits) of a mined DB: every sample's arrays in
+    sorted key order, so that workers can show they hold the same DB."""
+    h = hashlib.sha256()
+
+    def walk(node):
+        for k in sorted(node):
+            h.update(str(k).encode())
+            v = node[k]
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                h.update(np.ascontiguousarray(np.asarray(v)).tobytes())
+
+    walk(db)
+    return h.hexdigest()[:16]
+
+
 def merge_mined_dbs(dbs: List[Dict[str, dict]]) -> Dict[str, dict]:
     """Merge per-worker mined DBs (sequences are disjoint, so keys never
     collide)."""
@@ -131,6 +149,18 @@ def merge_mined_dbs(dbs: List[Dict[str, dict]]) -> Dict[str, dict]:
     for db in dbs:
         out.update(db)
     return out
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(on: bool = True):
+    """cuDNN restricted to its deterministic algorithms while the block
+    runs (when `on`); the caller's setting is put back after it."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = saved or on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 @contextlib.contextmanager
@@ -447,6 +477,8 @@ class LisoSelfTraining:
             (out / f".done_worker{worker_id}").touch()
             if gather:
                 mined, augm_final = self._gather_worker_dbs(out, world_size)
+                print(f"round {self.round_idx}: worker {worker_id} merged "
+                      f"{world_size} shards, DB digest {db_digest(mined)}")
                 self.mined_db = mined
                 self.augm_db = None
                 self._augm_db_final = augm_final
@@ -766,7 +798,10 @@ class LisoSelfTraining:
                     # the seed is taken after round_idx moved on, as in JAX
                     self._init_detector(int(self.cfg.seed) + self.round_idx)
                 t_fwd0 = time.perf_counter()
-                metrics = self.state.train_step(pts, valid, target)
+                # replicas must stay bitwise equal (the replica check): the
+                # cuDNN backward's fastest algorithms sum in no fixed order
+                with cudnn_deterministic(self.world_size > 1):
+                    metrics = self.state.train_step(pts, valid, target)
                 loss = float(metrics["loss/total"])  # waits for the step
                 t_end = time.perf_counter()
                 metrics_hist.append(loss)

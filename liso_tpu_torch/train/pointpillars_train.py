@@ -38,8 +38,13 @@ class PointPillarsTrainer(AdamWTrainState):
         post_max_boxes: int = 100,
         confidence_threshold: float = 0.3,
         seed: int = 0,
+        group=None,
         device=None,
     ):
+        if group is not None:
+            raise NotImplementedError(
+                "a sharded PointPillars step is not ported (ROADMAP §A item 4b: "
+                "the anchor IoU and the target assignment across ranks)")
         self.device = resolve_device(device)
         self.bev = bev
         self.anchor_cfg = anchor_cfg

@@ -35,8 +35,13 @@ class PointRCNNTrainer(AdamWTrainState):
         post_max_boxes: int = 100,
         confidence_threshold: float = 0.3,
         seed: int = 0,
+        group=None,
         device=None,
     ):
+        if group is not None:
+            raise NotImplementedError(
+                "a sharded PointRCNN step is not ported (ROADMAP §A item 4b: "
+                "the proposals and the Hungarian stage across ranks)")
         self.device = resolve_device(device)
         self.bev = bev
         self.model = PointRCNNNet(bev, cfg=cfg, device=self.device)

@@ -10,6 +10,13 @@ and loss, one batched 1-NN per direction, the threshold update, and the
 optimizer's update with optax's semantics, optionally after clipping the
 gradient by its global norm. Both steps run with TF32 off (fp32 convs and
 matmuls stay fp32), as DetectorTrainer's do.
+
+Given a process group (`group`, parallel/mesh.py), `train_step` takes the
+rank's shard of the batch and gives every rank the one-process step on the
+global batch: batch norms and loss denominators reduce over the group, the
+threshold histogram is summed over it before the fold, and the gradient is
+summed once before its norm, the clipping and the update. The state is
+broadcast from rank 0 at construction.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from liso_tpu_torch.losses.slim_loss import (
     slim_loss_single_iteration,
     threshold_update_inputs,
 )
-from liso_tpu_torch.models.layers import init_weights
+from liso_tpu_torch.models.layers import init_weights, set_batch_norm_group
 from liso_tpu_torch.models.pillar_encoder import pillar_coords
 from liso_tpu_torch.models.slim import (
     MovAvgState,
@@ -36,6 +43,7 @@ from liso_tpu_torch.models.slim import (
 )
 from liso_tpu_torch.models.slim_decoder import DecoderCfg, decode
 from liso_tpu_torch.ops.bev import BevSetup, point_cell_ids, voxel_center_coords
+from liso_tpu_torch.parallel.mesh import all_sum_, replicate, total_metrics
 from liso_tpu_torch.serve import resolve_device
 from liso_tpu_torch.utils.schedules import polynomial_decay_with_warmup
 
@@ -132,6 +140,7 @@ class SlimTrainer:
         compute_dtype=None,
         seed: int = 0,
         detect_anomaly: bool = False,
+        group=None,
         device=None,
     ):
         """optimizer: "rmsprop" or "adam" (optax's defaults), after
@@ -139,7 +148,9 @@ class SlimTrainer:
         detect_anomaly: check the loss and the gradient norm of every step
         for non-finite values before the update; on a failure re-run the
         batch under torch.autograd.detect_anomaly() and raise
-        FloatingPointError (the port's counterpart of jax_debug_nans)."""
+        FloatingPointError (the port's counterpart of jax_debug_nans).
+        group: a torch.distributed process group over which the batch is
+        split (module docstring); None trains on the local batch."""
         if optimizer not in ("rmsprop", "adam"):
             raise ValueError(optimizer)
         self.device = resolve_device(device)
@@ -180,6 +191,10 @@ class SlimTrainer:
         self.count = 0
         self.step = 0
         self.movavg = movavg_init(num_train_samples, device=self.device)
+        self.group = group
+        if group is not None:
+            set_batch_norm_group(self.model, group)
+            replicate(group, self.state_dict())
 
     # ------------------------------------------------------------------
     def state_dict(self) -> dict:
@@ -280,6 +295,7 @@ class SlimTrainer:
                 preds_fw[it], preds_bw[it], p0.pcl, p0.valid, p1.pcl, p1.valid,
                 movavg, self.lcfg, update_threshold=False,
                 knn_fw=knn_fw_all[it], knn_bw=knn_bw_all[it], plain=plain,
+                group=self.group,
             )
             if do_thresh:
                 upd_inputs.append(threshold_update_inputs(
@@ -292,7 +308,8 @@ class SlimTrainer:
             # every iteration's histogram in ONE sort + K3 pass; the EMA
             # folds sequentially
             movavg = movavg_update_batched(
-                movavg, *(torch.stack(a) for a in zip(*upd_inputs)), plain=plain)
+                movavg, *(torch.stack(a) for a in zip(*upd_inputs)), plain=plain,
+                group=self.group)
         return total, movavg, metrics, last_pred
 
     # ------------------------------------------------------------------
@@ -300,11 +317,16 @@ class SlimTrainer:
         """One step in place. Returns the JAX train step's metrics (0-dim
         tensors): the last iteration's loss terms, `loss`, `grad_norm` (of
         the gradient before clipping) and `lr` (the schedule at this step;
-        0 at step 0)."""
+        0 at step 0). With a group: the global batch's values on every
+        rank."""
         with fp32_precision():
             params = list(self.params.values())
             loss, movavg, metrics, grads = self._loss_and_grads(
                 params, batch, plain)
+            if self.group is not None:
+                grads = all_sum_(grads, self.group)
+                metrics = total_metrics({**metrics, "loss": loss}, self.group)
+                loss = metrics.pop("loss")
             g_norm = global_norm(grads)
             if self.detect_anomaly and not bool(
                     torch.isfinite(torch.stack([loss.detach(), g_norm])).all()):

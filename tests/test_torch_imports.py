@@ -71,6 +71,7 @@ def test_package_imports_with_jax_blocked():
         "import liso_tpu_torch.losses.hungarian_loss\n"
         "import liso_tpu_torch.ops.ball_query\n"
         "import liso_tpu_torch.models.time_reduce_conv\n"
+        "import liso_tpu_torch.parallel.mesh, liso_tpu_torch.parallel.dryrun\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -157,23 +157,45 @@ Phases, each printing JSON lines:
                counts (DT_CLI_KV: mining at 0, 4, 8, the reset at 8, a
                validate at 8 and at the end, saves at 4, 8, 9), with its
                seconds by stage.
-  12. parallel - data parallel on the one card (liso_tpu_torch/parallel):
-               (a) the SLIM train step at the train phase's point and (b)
-               the CenterPoint step at the rounds cell's (cuDNN
-               deterministic), each with the global batch of P_WORLD split
-               over P_WORLD gloo ranks in spawned processes: every rank's
-               first step against the one-process step on the full batch
-               (loss terms, grad norm; the threshold state; the BN running
-               statistics), P_STEPS timed steps after P_WARMUP (median, max,
-               host ms in the collectives, launches reset just before and
-               read just after on each rank), and rank 0's profiler on a
-               step; (c) one CenterPoint step over an nccl group of one
-               rank, whose state must equal bitwise the step's without a
-               group; (d) two `liso_cli -c bev_100m_512 centerpoint liso`
-               processes over one log dir (--world_size 2), cut in step
-               counts (P_CLI_KV): disjoint mined shards, the same merged DB
-               digest on both workers, equal parameter digests at every
-               round boundary.
+  12. reference_raft - the reference layout of RAFT: a random state_dict
+               in the reference's layout (every key the checkpoint
+               converter reads) through models/torch_compat.
+               load_reference_raft at the train cell's grid (920 over 120
+               m), fp32, batch 1, RR_ITERS iterations, on pillar images of
+               64 channels: K2 held to its plain version and timed on the
+               forward's own lookups; RR_WARMUP + RR_CALLS forwards (launches
+               reset just before and read just after, one under the
+               profiler); the forward through the plain versions (flow
+               within FLOW_ATOL, logits within RR_LOGIT_ATOL); the card
+               against the port on the CPU at grid RR_CPU_GRID.
+  13. etl    - a KITTI-raw drive written from data/synthetic.py
+               (velodyne .bin, OXTS packets, calibration), converted by the
+               port's create_kitti with ICP (odometry held to the planted
+               motion), read by KittiRawDataset, and the `bev_100m_512
+               centerpoint liso` detector's predict_step on the card over
+               the frames read: K1 held bitwise and timed at their cells,
+               DT_PREDICTS timed calls, the kept boxes against the plain
+               run's.
+  14. parallel - data parallel on the one card (liso_tpu_torch/parallel):
+               (a) the SLIM train step at the train phase's point, (b)
+               the CenterPoint step at the rounds cell's and (b') the
+               TransFusion, PointPillars and PointRCNN steps of their
+               presets on the same batch (cuDNN deterministic), each with
+               the global batch of P_WORLD split over P_WORLD gloo ranks in
+               spawned processes: every rank's first step against the
+               one-process step on the full batch (loss terms, grad norm;
+               the threshold state; the BN running statistics), P_STEPS
+               (P_O_STEPS for b') timed steps after P_WARMUP (1) (median,
+               max, host ms in the collectives, launches reset just before
+               and read just after on each rank), and rank 0's profiler on
+               a step; (c) one CenterPoint and one P_O_NCCL step over an
+               nccl group of one rank, whose state must equal bitwise the
+               step's without a group; (d) two `liso_cli -c bev_100m_512
+               centerpoint liso` processes over one log dir (--world_size
+               2), cut in step counts (P_CLI_KV): disjoint mined shards,
+               the same merged DB digest on both workers, equal parameter
+               digests at every round boundary; beside them
+               dryrun_multichip(2) on the card.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. A failed check, or any exception, prints one
 line {"phase": "failed", "check": "<function>:<line>", "message": "..."}
@@ -304,6 +326,42 @@ P_CLI_SPR, P_CLI_STEPS = 4, 6
 P_CLI_KV = [["optimization", "rounds", "steps_per_round", str(P_CLI_SPR)],
             ["optimization", "num_training_steps", str(P_CLI_STEPS)]]
 P_RANKS_TIMEOUT_S, P_CLI_TIMEOUT_S = 300, 300
+# The other networks over the same gloo ranks (bev_100m_512 <net> liso, the
+# rounds cell's first batch, cuDNN deterministic): the first step against
+# the one-process step (loss terms within DET_LOSS_RTOL, the grad norm of
+# the gradient the update takes within DET_GRAD_NORM_RTOL, the BN running
+# statistics within P_STATS_RTOL, the CenterPoint limits, but the loss
+# terms within P_O_LOSS_RTOL: the CPU test's CenterPoint limit, which the
+# card held too before CenterPoint measured 4.2e-6 there; stated before
+# these networks' first card run), then P_O_STEPS timed steps
+# after the first; an nccl group of one rank for P_O_NCCL.
+P_OTHERS, P_O_STEPS, P_O_NCCL = ("transfusion", "pointpillars", "pointrcnn"), 4, "transfusion"
+P_O_LOSS_RTOL = 5e-5
+# The reference-checkpoint RAFT (models/torch_compat.load_reference_raft): a
+# random state_dict in the reference's layout (fnet 128, cnet 96 + 64, 4
+# levels, radius 3, RR_ITERS iterations) at the train cell's grid, batch 1,
+# fp32, on pillar images of 64 channels; RR_WARMUP + RR_CALLS forward
+# calls. Limits, stated before the first card run: kernels against plain
+# on the card, flow within FLOW_ATOL (K2 rounds a few taps to the other
+# bf16 neighbour, as on the serving path) and logits within RR_LOGIT_ATOL;
+# the card against the port on the CPU at grid RR_CPU_GRID, flow within
+# RR_CPU_FLOW_ATOL and logits within RR_CPU_LOGIT_ATOL (the CPU parity
+# test's 2e-3 m and 1e-3 hold 2 iterations; 6 iterations of bf16 tap flips
+# and cuDNN's against oneDNN's fp32 sums, x5).
+RR_ITERS, RR_WARMUP, RR_CALLS, RR_CPU_GRID = 6, 2, 8, 128
+RR_LOGIT_ATOL, RR_CPU_FLOW_ATOL, RR_CPU_LOGIT_ATOL = 2e-2, 1e-2, 5e-3
+# The ETL: a KITTI-raw drive written from data/synthetic.py (ETL_FRAMES
+# frames of ETL_BG background points and 2 moving objects, velodyne .bin,
+# OXTS packets, identity IMU-to-velo calibration), converted by the port's
+# create_kitti with ICP, read by KittiRawDataset at the `bev_100m_512
+# centerpoint liso` DataCfg, and the detector's predict_step on the card
+# over the frames read. The planted ego motion: odometry within
+# ETL_ODOM_ATOL (GPS) and ETL_ICP_ATOL (ICP) of ETL_EGO_M per frame. The
+# scene's static points are uniform noise with no surfaces: at 60000 of
+# them (0.25 m apart) point-to-point ICP settles near no motion (1.1 m off
+# the planted 1.2 m, on the H100 machine as on the CPU), at 8000 (0.7 m
+# apart) it finds the motion within 5e-3 m.
+ETL_FRAMES, ETL_BG, ETL_EGO_M, ETL_ODOM_ATOL, ETL_ICP_ATOL = 6, 8000, 1.2, 2e-3, 0.05
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -696,9 +754,10 @@ def check_corr_fwd(f0, f1cat, coords, lv, layout):
     return got, want, err, ulp, slack
 
 
-def step_corr_lookups(serve, slim, det, fmap, cn, pts, valid):
-    """The inputs of K2's launches in one fused_streaming step (one per
-    RAFT iteration), captured by wrapping corr_fused.fused_corr_window."""
+def corr_lookups(fn, expect, what):
+    """The inputs of K2's launches in one call of `fn` (one per RAFT
+    iteration), captured by wrapping corr_fused.fused_corr_window; there
+    must be `expect` of them."""
     from liso_tpu_torch.ops import corr_fused
 
     seen = []
@@ -711,29 +770,33 @@ def step_corr_lookups(serve, slim, det, fmap, cn, pts, valid):
 
     corr_fused.fused_corr_window = keep
     try:
-        serve.fused_streaming(slim, det, fmap, cn, pts, valid)
+        fn()
     finally:
         corr_fused.fused_corr_window = fwd
-    if len(seen) != ITERS:
-        fail(f"a streaming step made {len(seen)} corr lookups, expected {ITERS}")
+    if len(seen) != expect:
+        fail(f"{what} made {len(seen)} corr lookups, expected {expect}")
     return seen
 
 
-def serving_step_layout(lookups):
-    """K2 on the coords of a real streaming step: each of its lookups held
-    to the plain version; kernel-only (profiler, mean over the step's
-    launches), event and plain ms of the whole step's lookups, per launch;
-    the flow (coords less the pixel grid, px) of each lookup; the byte
-    bound of one lookup."""
+def k2_lookups_layout(lookups, what):
+    """K2 on the coords of a real forward's lookups (a streaming step's,
+    the reference RAFT's): each held to the plain version; kernel-only
+    (profiler, mean over the launches), event and plain ms of all the
+    lookups, per launch; the flow (coords less the pixel grid, px) of each
+    lookup; the bound of one lookup: its inputs read once (f0 as given,
+    before the wrapper's bf16 rounding) and its taps written once, or its
+    in-range dots (2 C operations a tap with a nonzero plain value, this
+    run's data) at the bf16 rate, the larger."""
     import torch
 
     from liso_tpu_torch.ops import corr_fused
 
-    errs = []
+    errs, ops = [], 0
     for i, (f0, f1cat, coords, lv) in enumerate(lookups):
-        _, _, err, _, _ = check_corr_fwd(f0, f1cat, coords, lv,
-                                         f"the streaming step's lookup {i}")
+        _, want, err, _, _ = check_corr_fwd(f0, f1cat, coords, lv,
+                                            f"{what}'s lookup {i}")
         errs.append(float(err.max()))
+        ops += int((want != 0).sum()) * 2 * f0.shape[-1]
     n = len(lookups)
 
     def run(plain=False):
@@ -746,14 +809,18 @@ def serving_step_layout(lookups):
         torch.arange(h, device="cuda"), torch.arange(w, device="cuda"),
         indexing="ij")).float().reshape(1, 2, h * w)
     flow_px = [(c - grid).norm(dim=1) for _, _, c, _ in lookups]
-    nbytes = (f0.numel() * 2 + f1cat.numel() * 2 + coords.numel() * 4
+    nbytes = (f0.numel() * f0.element_size()
+              + f1cat.numel() * f1cat.element_size() + coords.numel() * 4
               + f0.shape[0] * len(lv.shapes) * 64 * f0.shape[1] * 4)
+    bms, bby = bound(nbytes, ops / n, BF16_FLOP_PER_S)
     return {
         "lookups": n,
+        "shape": f"f0 {list(f0.shape)} {dtype_name(f0.dtype)}, f1cat "
+                 f"{list(f1cat.shape)} bf16, {len(lv.shapes)} levels",
         "flow_px_mean": [float(f.mean()) for f in flow_px],
         "flow_px_max": [float(f.max()) for f in flow_px],
         "max_abs_err": max(errs),
-        "bound_ms": bound(nbytes, 0, BF16_FLOP_PER_S)[0],
+        "bound_ms": bms, "bound_by": bby,
         "ms": cuda_ms(run) / n,
         "kernel_only_ms": kernel_only_ms(run, "corr_window_fwd_kernel"),
         "plain_ms": cuda_ms(lambda: run(plain=True)) / n,
@@ -3192,11 +3259,41 @@ def p_step(trainer, batch, slim: bool) -> dict:
     return trainer.train_step(batch) if slim else trainer.train_step(*batch)
 
 
+class UpdateGradNorm:
+    """The global norm of the gradient a detector trainer's AdamW update
+    takes (the sum over the ranks under a group), recorded by wrapping
+    train.detector_train.adamw_update_: PointPillars' and PointRCNN's
+    metrics carry no grad norm, as the JAX trainers' do not."""
+
+    def __enter__(self):
+        from liso_tpu_torch.train import detector_train
+
+        self.module, self.orig, self.norms = detector_train, \
+            detector_train.adamw_update_, []
+
+        def update(params, grads, *args, **kw):
+            self.norms.append(float(detector_train.global_norm(grads)))
+            return self.orig(params, grads, *args, **kw)
+
+        detector_train.adamw_update_ = update
+        return self
+
+    def __exit__(self, *exc):
+        self.module.adamw_update_ = self.orig
+
+
 def p_first_step(trainer, batch, slim: bool) -> dict:
     """One step from the trainer's initial state: its metrics, and the
-    threshold state (SLIM) or the BN running statistics (detector)."""
-    m = p_step(trainer, batch, slim)
+    threshold state (SLIM) or the BN running statistics and the update's
+    grad norm (detector)."""
+    if slim:
+        m = p_step(trainer, batch, slim)
+    else:
+        with UpdateGradNorm() as rec:
+            m = p_step(trainer, batch, slim)
     out = {"metrics": {k: float(v) for k, v in m.items()}}
+    if not slim:
+        out["metrics"]["update_grad_norm"] = rec.norms[-1]
     if slim:
         out["bias_counter"] = float(trainer.movavg.bias_counter)
         out["importance_cumsum"] = trainer.movavg.importance.double().cumsum(0).cpu()
@@ -3206,22 +3303,23 @@ def p_first_step(trainer, batch, slim: bool) -> dict:
     return out
 
 
-def p_timed_steps(trainer, batch, slim: bool, kernels) -> dict:
-    """P_WARMUP - 1 more warm-up steps (the first step was the first),
-    then P_STEPS timed steps, each awaited, with the launch counts and the
+def p_timed_steps(trainer, batch, slim: bool, kernels, warmup=P_WARMUP,
+                  steps=P_STEPS) -> dict:
+    """warmup - 1 more warm-up steps (the first step was the first), then
+    `steps` timed steps, each awaited, with the launch counts and the
     collectives' host time reset just before and read just after."""
     import torch
 
     from liso_tpu_torch.parallel import mesh
 
-    for _ in range(P_WARMUP - 1):
+    for _ in range(warmup - 1):
         p_step(trainer, batch, slim)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     mesh.reset_collective_stats()
     ms = []
-    for _ in range(P_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         p_step(trainer, batch, slim)
         torch.cuda.synchronize()
@@ -3230,30 +3328,49 @@ def p_timed_steps(trainer, batch, slim: bool, kernels) -> dict:
             "step_ms": ms, "launches": dict(kernels.launches),
             "collectives": dict(mesh.collective_stats),
             "collective_ms_per_step": mesh.collective_stats["seconds"] * 1e3
-            / P_STEPS,
+            / steps,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def p_step_launches(kernels) -> dict:
-    """Each kernel's launches in one SLIM and one CenterPoint train step."""
+    """Each kernel's launches in one SLIM train step and in one step of
+    each detector (CenterPoint's "det" and the others')."""
     zero = {k: 0 for k in kernels.launches}
+    det = {**zero, "grid_scatter_max_occ": 1, "scatter_max_vjp": 1}
     return {
         "slim": {**zero, "grid_scatter_max_occ": 2,
                  "corr_window_fwd": 2 * T_ITERS, "scatter_max_vjp": 2,
                  "grid_reduce_add_c1": 1, "corr_window_bwd": 2 * T_ITERS,
                  "knn_banded": 2},
-        "det": {**zero, "grid_scatter_max_occ": 1, "scatter_max_vjp": 1},
+        "det": det, **{net: det for net in P_OTHERS},
     }
 
 
-def parallel_rank(group, slim_batch, det_batch, det_kwargs):
-    """One rank of the parallel phase (a spawned process): the SLIM and
-    then the CenterPoint step on this rank's shard of the global batch:
-    the first step (compared with the one-process step), the timed steps,
-    and up to P_PROFILED steps on every rank, rank 0's under the profiler,
-    until its profiler sees every launch of the step (rank 0 broadcasts
-    whether it did, so that every rank runs the same steps: each step
-    meets the others in its collectives)."""
+def p_other_trainer(net, ds_cfg, group, log_dir):
+    """`bev_100m_512 <net> liso`'s trainer as the rounds loop builds it
+    (LisoSelfTraining._make_trainer), its step sharded over `group` when
+    one is given."""
+    from liso_tpu_torch.cli.common import DEFAULT_CFG
+    from liso_tpu_torch.train import liso_loop
+    from liso_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config(DEFAULT_CFG, ["bev_100m_512", net, "liso"])
+    loop = liso_loop.LisoSelfTraining(cfg, lambda db: None, None, log_dir,
+                                      data_cfg=ds_cfg, device="cuda")
+    if group is None:
+        return loop.trainer
+    loop.trainer = None
+    return loop._make_trainer(group)
+
+
+def parallel_rank(group, slim_batch, det_batch, det_kwargs, ds_cfg, log_dir):
+    """One rank of the parallel phase (a spawned process): the SLIM, the
+    CenterPoint and then each of P_OTHERS' steps on this rank's shard of
+    the global batch: the first step (compared with the one-process step),
+    the timed steps, and up to P_PROFILED steps on every rank, rank 0's
+    under the profiler, until its profiler sees every launch of the step
+    (rank 0 broadcasts whether it did, so that every rank runs the same
+    steps: each step meets the others in its collectives)."""
     import torch
 
     from liso_tpu_torch import kernels
@@ -3269,17 +3386,23 @@ def parallel_rank(group, slim_batch, det_batch, det_kwargs):
 
     out = {"rank": rank}
     t0 = time.perf_counter()
-    for name, make, batch, slim in (
-            ("slim", lambda: p_slim_trainer(group), slim_batch, True),
+    runs = [("slim", lambda: p_slim_trainer(group), slim_batch, True),
             ("det", lambda: DetectorTrainer(**det_kwargs, group=group,
-                                            device="cuda"), det_batch, False)):
+                                            device="cuda"), det_batch, False)]
+    for net in P_OTHERS:
+        runs.append((net, lambda net=net: p_other_trainer(
+            net, ds_cfg, group, Path(log_dir) / f"rank{rank}_{net}"),
+            det_batch, False))
+    for name, make, batch, slim in runs:
+        other = name in P_OTHERS
         with cudnn_deterministic(not slim):
             t1 = time.perf_counter()
             trainer, batch = make(), on_card(batch)
             t2 = time.perf_counter()
             r = p_first_step(trainer, batch, slim)
             t3 = time.perf_counter()
-            r.update(p_timed_steps(trainer, batch, slim, kernels))
+            r.update(p_timed_steps(trainer, batch, slim, kernels,
+                                   *((1, P_O_STEPS) if other else ())))
             t4 = time.perf_counter()
             profiled = []
             for _ in range(P_PROFILED):
@@ -3309,7 +3432,7 @@ def parallel_rank(group, slim_batch, det_batch, det_kwargs):
 def p_det_batch():
     """The rounds cell's first batch (`bev_100m_512 centerpoint liso`,
     batch 2, n_max 65536, 512^2 cells) as `_prepare_batch` gives it, on the
-    host, and the DetectorTrainer arguments of that preset."""
+    host, the DetectorTrainer arguments of that preset and its DataCfg."""
     import tempfile
 
     from liso_tpu_torch.cli.common import DEFAULT_CFG
@@ -3335,7 +3458,7 @@ def p_det_batch():
     kw = {"bev": loop.bev, "box_cfg": loop.box_cfg,
           "max_lr": float(cfg.optimization.learning_rate),
           "total_steps": D_TOTAL_STEPS, "seed": int(cfg.seed) + 1}
-    return map_tree(lambda t: t.cpu(), batch), kw
+    return map_tree(lambda t: t.cpu(), batch), kw, ds_cfg
 
 
 def p_rel(a, b):
@@ -3419,14 +3542,15 @@ def p_liso_cli_workers(tmp: Path, meanwhile) -> tuple:
 
 
 def phase_parallel(kernels):
-    """Data parallel on the one card: (a) the SLIM step and (b) the
-    CenterPoint step with the global batch of P_WORLD split over P_WORLD
-    gloo ranks, against the one-process step on the full batch; (c) one
-    CenterPoint step over an nccl group of one rank, bitwise equal to the
-    step without a group; (d) two liso_cli workers over one log dir and,
-    while they run, `dryrun_multichip(2)` on the card (two ranks' SLIM and
-    CenterPoint steps, and two rounds-loop workers that each mine one
-    sequence of a two-sequence drive)."""
+    """Data parallel on the one card: (a) the SLIM step, (b) the
+    CenterPoint step and (b') the TransFusion, PointPillars and PointRCNN
+    steps with the global batch of P_WORLD split over P_WORLD gloo ranks,
+    against the one-process step on the full batch; (c) one step of
+    CenterPoint and of P_O_NCCL over an nccl group of one rank, bitwise
+    equal to the step without a group; (d) two liso_cli workers over one
+    log dir and, while they run, `dryrun_multichip(2)` on the card (two
+    ranks' SLIM and detector steps, and two rounds-loop workers that each
+    mine one sequence of a two-sequence drive)."""
     import tempfile
 
     import torch
@@ -3440,7 +3564,7 @@ def phase_parallel(kernels):
     parts = {}
     per_step = p_step_launches(kernels)
     slim_batch = p_slim_batch()
-    det_batch, det_kw = p_det_batch()
+    det_batch, det_kw, ds_cfg = p_det_batch()
     torch.cuda.empty_cache()
     parts["batches"] = time.perf_counter() - t_phase
     res = {"phase": "parallel", "world": P_WORLD, "backend": "gloo",
@@ -3451,8 +3575,13 @@ def phase_parallel(kernels):
                    "n_max": M_PTS, "global_batch": P_WORLD, "dtype": "fp32",
                    "target_boxes": int(det_batch[2].valid.sum()),
                    "cudnn_deterministic": True},
+           **{net: {"configs": f"bev_100m_512 {net} liso", "grid": D_GRID,
+                    "n_max": M_PTS, "global_batch": P_WORLD, "dtype": "fp32",
+                    "cudnn_deterministic": True, "warmup_steps": 1,
+                    "steps": P_O_STEPS} for net in P_OTHERS},
            "warmup_steps": P_WARMUP, "steps": P_STEPS,
            "tolerance": {"slim_loss_rtol": TRAIN_LOSS_RTOL,
+                         "other_detectors_loss_rtol": P_O_LOSS_RTOL,
                          "slim_grad_norm_rtol": TRAIN_GRAD_NORM_RTOL,
                          "slim_bias_counter_rtol": P_BIAS_RTOL,
                          "slim_importance_cumsum_rel": P_CUMSUM_REL,
@@ -3463,29 +3592,39 @@ def phase_parallel(kernels):
         tmp = Path(tmp)
         # (a), (b): the ranks, then the one-process steps on the free card
         t0 = time.perf_counter()
+        names = ("slim", "det", *P_OTHERS)
         ranks = mesh.RankProcesses(parallel_rank, P_WORLD,
-                                   (slim_batch, det_batch, det_kw),
+                                   (slim_batch, det_batch, det_kw, ds_cfg,
+                                    str(tmp / "rank_loops")),
                                    backend="gloo", workdir=tmp / "ranks",
                                    timeout_s=P_RANKS_TIMEOUT_S).join()
         res["ranks_wall_s"] = parts["ranks"] = time.perf_counter() - t0
         res["ranks_steps_s"] = [rk["steps_s"] for rk in ranks]
-        res["ranks_parts_s"] = [{n: rk[n]["parts_s"] for n in ("slim", "det")}
+        res["ranks_parts_s"] = [{n: rk[n]["parts_s"] for n in names}
                                 for rk in ranks]
         t0 = time.perf_counter()
         one = {}
-        for name, slim in (("slim", True), ("det", False)):
+        for name in names:
+            slim, other = name == "slim", name in P_OTHERS
             with cudnn_deterministic(not slim):
-                trainer = (p_slim_trainer(None) if slim else
-                           DetectorTrainer(**det_kw, device="cuda"))
+                if slim:
+                    trainer = p_slim_trainer(None)
+                elif other:
+                    trainer = p_other_trainer(name, ds_cfg, None,
+                                              tmp / f"one_{name}")
+                else:
+                    trainer = DetectorTrainer(**det_kw, device="cuda")
                 batch = mesh.map_tree(lambda t: t.cuda(),
                                       slim_batch if slim else det_batch)
                 one[name] = p_first_step(trainer, batch, slim)
-                one[name].update(p_timed_steps(trainer, batch, slim, kernels))
+                one[name].update(p_timed_steps(
+                    trainer, batch, slim, kernels,
+                    *((1, P_O_STEPS) if other else ())))
             del trainer, batch
             torch.cuda.empty_cache()
         parts["one_process"] = time.perf_counter() - t0
 
-        for name in ("slim", "det"):
+        for name in names:
             r = res[name]
             r["one_process"] = {k: one[name][k] for k in (
                 "metrics", "step_ms_median", "step_ms_max", "peak_memory_gb")}
@@ -3498,7 +3637,8 @@ def phase_parallel(kernels):
                 got = rk[name]
                 if got["metrics"] != ranks[0][name]["metrics"]:
                     fail(f"{name}: ranks disagree on the step's metrics")
-                expect = {k: v * P_STEPS for k, v in per_step[name].items()}
+                n_steps = P_O_STEPS if name in P_OTHERS else P_STEPS
+                expect = {k: v * n_steps for k, v in per_step[name].items()}
                 if got["launches"] != expect:
                     fail(f"{name} rank {rk['rank']}: launches {got['launches']}, "
                          f"expected {expect}")
@@ -3512,8 +3652,10 @@ def phase_parallel(kernels):
                 limits = {k: (TRAIN_GRAD_NORM_RTOL if k == "grad_norm"
                               else TRAIN_LOSS_RTOL) for k in want if k != "lr"}
             else:
-                limits = {k: (DET_GRAD_NORM_RTOL if k == "grad_norm"
-                              else DET_LOSS_RTOL) for k in want if k != "lr"}
+                loss_rtol = P_O_LOSS_RTOL if name in P_OTHERS else DET_LOSS_RTOL
+                limits = {k: (DET_GRAD_NORM_RTOL
+                              if k in ("grad_norm", "update_grad_norm")
+                              else loss_rtol) for k in want if k != "lr"}
             r["rel_vs_one_process"] = {k: p_rel(got["metrics"][k], want[k])
                                        for k in limits}
             bad = {k: v for k, v in r["rel_vs_one_process"].items()
@@ -3539,30 +3681,39 @@ def phase_parallel(kernels):
                 fail(f"{name}: the {P_WORLD}-rank step against the one-process "
                      f"step: {bad}")
         res["launches"] = {k: sum(rk[n]["launches"][k] for rk in ranks
-                                  for n in ("slim", "det"))
+                                  for n in names)
                            for k in kernels.launches}
 
         # (c) nccl over one rank: the same bits as the step without a group
         t0 = time.perf_counter()
         det_gpu = mesh.map_tree(lambda t: t.cuda(), det_batch)
-        states = {}
+        makers = {"det": lambda g: DetectorTrainer(**det_kw, group=g,
+                                                   device="cuda"),
+                  P_O_NCCL: lambda g: p_other_trainer(
+                      P_O_NCCL, ds_cfg, g, tmp / f"nccl_{P_O_NCCL}")}
+        states = {name: {} for name in makers}
         with cudnn_deterministic():
             group = mesh.make_mesh(1, 0, "nccl", tmp / "nccl")
             try:
-                for key, g in (("nccl", group), ("none", None)):
-                    trainer = DetectorTrainer(**det_kw, group=g, device="cuda")
-                    m = trainer.train_step(*det_gpu)
-                    states[key] = (to_host(trainer.state_dict()),
-                                   {k: float(v) for k, v in m.items()})
-                    del trainer
+                for name, make in makers.items():
+                    for key, g in (("nccl", group), ("none", None)):
+                        trainer = make(g)
+                        m = trainer.train_step(*det_gpu)
+                        states[name][key] = (
+                            to_host(trainer.state_dict()),
+                            {k: float(v) for k, v in m.items()})
+                        del trainer
             finally:
                 mesh.destroy_mesh()
-        diff = state_equal(states["nccl"][0], states["none"][0])
-        res["nccl_world_1"] = {"state_differs_at": diff,
-                               "metrics_equal": states["nccl"][1] == states["none"][1]}
-        if diff or states["nccl"][1] != states["none"][1]:
-            fail(f"the nccl step of one rank differs from the step without a "
-                 f"group: {res['nccl_world_1']}")
+        res["nccl_world_1"] = {}
+        for name, st in states.items():
+            diff = state_equal(st["nccl"][0], st["none"][0])
+            res["nccl_world_1"][name] = {
+                "state_differs_at": diff,
+                "metrics_equal": st["nccl"][1] == st["none"][1]}
+            if diff or st["nccl"][1] != st["none"][1]:
+                fail(f"{name}: the nccl step of one rank differs from the "
+                     f"step without a group: {res['nccl_world_1'][name]}")
         torch.cuda.empty_cache()
         parts["nccl"] = time.perf_counter() - t0
 
@@ -3575,6 +3726,292 @@ def phase_parallel(kernels):
     res["parts_s"] = parts
     res["phase_s"] = time.perf_counter() - t_phase
     return res
+
+
+# ---------------------------------------------------------------------------
+# The reference-checkpoint RAFT
+# ---------------------------------------------------------------------------
+def rr_images(grid, seed):
+    """Two pillar images [1, grid, grid, 64] of the train cell's extent
+    (T_RANGE): a seeded PillarEncoder (eval mode) over the JAX train
+    benchmark's cloud and the same cloud moved by (0.6, -0.4) m."""
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.models.layers import init_weights
+    from liso_tpu_torch.models.pillar_encoder import PillarEncoder
+    from liso_tpu_torch.ops.bev import BevSetup
+
+    bev = BevSetup((T_RANGE, T_RANGE), (grid, grid))
+    enc = init_weights(PillarEncoder(bev, num_channels=64, device="cuda"),
+                       seed).eval()
+    rng = np.random.RandomState(seed)
+    half = 0.5 * T_RANGE - 2.0
+    p0 = rng.uniform(-half, half, (1, T_PTS, 4)).astype(np.float32)
+    p1 = p0 + np.array([0.6, -0.4, 0.0, 0.0], np.float32)
+    valid = torch.ones(1, T_PTS, dtype=torch.bool, device="cuda")
+    with torch.no_grad():
+        return [enc(torch.from_numpy(p).cuda(), valid)[0] for p in (p0, p1)]
+
+
+def phase_reference_raft(kernels):
+    """The reference layout of RAFT at full width: a random state_dict in
+    the reference's layout through models/torch_compat.load_reference_raft
+    at the train cell's grid (fp32, batch 1): K2 held to its plain version
+    on the forward's own lookups; RR_CALLS timed forwards with the launch
+    counts reset just before and read just after, one under the profiler;
+    the forward against itself through the plain versions; and the card
+    against the port on the CPU at grid RR_CPU_GRID."""
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.models.raft import corr_channels
+    from liso_tpu_torch.models.torch_compat import (
+        load_reference_raft,
+        random_reference_state_dict,
+    )
+    from liso_tpu_torch.train.slim_train import fp32_precision
+
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in kernels.launches}
+    per_call = {**zero, "corr_window_fwd": RR_ITERS}
+    res_m = T_RANGE / T_GRID
+    n_corr = corr_channels((T_GRID, T_GRID))
+    if corr_channels((RR_CPU_GRID, RR_CPU_GRID)) != n_corr:
+        fail("the CPU grid's corr pyramid has other levels than the card's")
+    sd = random_reference_state_dict(0, n_corr)
+    res = {"phase": "reference_raft", "grid": T_GRID, "range_m": T_RANGE,
+           "batch": 1, "iters": RR_ITERS, "dtype": "fp32 (TF32 off)",
+           "pillar_channels": 64, "state_dict_tensors": len(sd),
+           "state_dict_values": int(sum(v.size for v in sd.values())),
+           "warmup_calls": RR_WARMUP, "calls": RR_CALLS,
+           "tolerance": {"flow_m": FLOW_ATOL, "logits": RR_LOGIT_ATOL,
+                         "cpu_flow_m": RR_CPU_FLOW_ATOL,
+                         "cpu_logits": RR_CPU_LOGIT_ATOL}}
+    with fp32_precision(), torch.no_grad():
+        t0 = time.perf_counter()
+        net = load_reference_raft(sd, (T_GRID, T_GRID), num_iters=RR_ITERS,
+                                  resolution_m=res_m, device="cuda")
+        torch.cuda.synchronize()
+        res["load_s"] = time.perf_counter() - t0
+        img0, img1 = rr_images(T_GRID, 0)
+        for _ in range(RR_WARMUP):
+            net(img0, img1)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        ms = []
+        for _ in range(RR_CALLS):
+            t0 = time.perf_counter()
+            out = net(img0, img1)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(kernels.launches)
+        if launches != {k: v * RR_CALLS for k, v in per_call.items()}:
+            fail(f"reference RAFT forward launches {launches}")
+        if tuple(out.shape) != (RR_ITERS, 1, T_GRID, T_GRID, 9) or not bool(
+                torch.isfinite(out).all()):
+            fail(f"reference RAFT output {tuple(out.shape)} or not finite")
+        counts, dev_ms, rows, _ = confirm_launches(
+            lambda: net(img0, img1), per_call, "a reference RAFT forward")
+        med = statistics.median(ms)
+        res.update({"forward_ms_median": med, "forward_ms_max": max(ms),
+                    "forward_ms": ms, "launches": launches,
+                    "profiled": {"launches": counts, "device_ms": dev_ms,
+                                 "device_busy_share": dev_ms / med,
+                                 "device_ms_by_family": families(rows)},
+                    "flow_abs_max_m": float(out[-1, ..., 4:6].abs().max())})
+        # the forward through the plain versions
+        ref = net(img0, img1, plain=True)
+        diffs = {"flow_m": float((out[..., 4:8] - ref[..., 4:8]).abs().max()),
+                 "logits": float((out[..., :4] - ref[..., :4]).abs().max()),
+                 "weight_logit": float((out[..., 8:] - ref[..., 8:]).abs().max())}
+        res["kernel_vs_plain"] = diffs
+        if not (diffs["flow_m"] <= FLOW_ATOL
+                and max(diffs["logits"], diffs["weight_logit"]) <= RR_LOGIT_ATOL):
+            fail(f"reference RAFT, kernels vs plain: {diffs}")
+        # K2 on this forward's own lookups
+        k2 = k2_lookups_layout(corr_lookups(
+            lambda: net(img0, img1), RR_ITERS, "a reference RAFT forward"),
+            "the reference RAFT forward")
+        del out, ref
+        # the card against the port on the CPU at RR_CPU_GRID
+        small = [im.cpu() for im in rr_images(RR_CPU_GRID, 1)]
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            n = load_reference_raft(sd, (RR_CPU_GRID, RR_CPU_GRID),
+                                    num_iters=RR_ITERS, resolution_m=T_RANGE
+                                    / RR_CPU_GRID, device=dev)
+            t0 = time.perf_counter()
+            outs[dev] = n(*(im.to(dev) for im in small)).cpu()
+            res[f"grid_{RR_CPU_GRID}_{dev}_forward_ms"] = (
+                time.perf_counter() - t0) * 1e3
+        a, b = outs["cuda"], outs["cpu"]
+        cpu_diffs = {"flow_m": float((a[..., 4:8] - b[..., 4:8]).abs().max()),
+                     "logits": float((a[..., :4] - b[..., :4]).abs().max()),
+                     "weight_logit": float((a[..., 8:] - b[..., 8:]).abs().max()),
+                     "flow_abs_max_m": float(b[..., 4:6].abs().max())}
+        res["card_vs_cpu"] = cpu_diffs
+        if not (np.isfinite(list(cpu_diffs.values())).all()
+                and cpu_diffs["flow_m"] <= RR_CPU_FLOW_ATOL
+                and max(cpu_diffs["logits"], cpu_diffs["weight_logit"])
+                <= RR_CPU_LOGIT_ATOL):
+            fail(f"reference RAFT at grid {RR_CPU_GRID}, card vs CPU: "
+                 f"{cpu_diffs}")
+    del net
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    return k2, res
+
+
+# ---------------------------------------------------------------------------
+# The ETL
+# ---------------------------------------------------------------------------
+def etl_oxts_line(tx: float, lat0: float = 49.011) -> str:
+    """One OXTS packet (30 fields) of a pose moved by `tx` m along x at
+    constant latitude: the inverse of create_kitti.oxts_to_pose's
+    mercator."""
+    import numpy as np
+
+    scale = np.cos(lat0 * np.pi / 180.0)
+    lon = tx * 180.0 / (np.pi * 6378137.0 * scale)
+    head = [lat0, lon, 112.8, 0.0, 0.0, 0.0]
+    tail = [10.0 * ETL_EGO_M, 0.0, 0.0] + [0.0] * 17 + [4, 4, 6, 6]
+    return " ".join(f"{v:.12f}" for v in head + tail)
+
+
+def etl_write_drive(root: Path) -> int:
+    """A KITTI-raw drive from data/synthetic.py under `root`
+    (2011_09_26/2011_09_26_drive_0001_sync): each frame's points in the
+    sensor frame as velodyne .bin (float32 x, y, z, intensity), its OXTS
+    packet, and the identity IMU-to-velo calibration. Returns the points
+    written per frame."""
+    import numpy as np
+
+    from liso_tpu_torch.data.synthetic import SyntheticSequence
+
+    seq = SyntheticSequence(n_frames=ETL_FRAMES, n_bg=ETL_BG,
+                            ego_speed=ETL_EGO_M, seed=3)
+    date = root / "2011_09_26"
+    drive = date / "2011_09_26_drive_0001_sync"
+    (drive / "velodyne_points" / "data").mkdir(parents=True)
+    (drive / "oxts" / "data").mkdir(parents=True)
+    (date / "calib_imu_to_velo.txt").write_text(
+        "R: 1 0 0 0 1 0 0 0 1\nT: 0 0 0\n")
+    for t in range(ETL_FRAMES):
+        pts, _, _ = seq.frame_world(t)
+        s_T_w = np.linalg.inv(seq.world_T_sensor(t))
+        xyz = pts[:, :3] @ s_T_w[:3, :3].T + s_T_w[:3, 3]
+        np.concatenate([xyz, pts[:, 3:]], -1).astype(np.float32).tofile(
+            drive / "velodyne_points" / "data" / f"{t:010d}.bin")
+        (drive / "oxts" / "data" / f"{t:010d}.txt").write_text(
+            etl_oxts_line(seq.world_T_sensor(t)[0, 3]) + "\n")
+    return len(pts)
+
+
+def phase_etl(kernels):
+    """The port's ETL on the host, then the card: a KITTI-raw drive
+    written from the synthetic scene, converted by `python -m
+    liso_tpu_torch.data.create_kitti --use_icp` (in this process), read by
+    KittiRawDataset at the `bev_100m_512 centerpoint liso` DataCfg, and
+    the detector's predict_step on the card over every frame read, K1 held
+    bitwise and timed at their cells, the kept boxes against the plain
+    run's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from liso_tpu_torch.cli.common import DEFAULT_CFG
+    from liso_tpu_torch.cli.slim_cli import build_datasets
+    from liso_tpu_torch.data import create_kitti
+    from liso_tpu_torch.data.kitti import KittiRawDataset
+    from liso_tpu_torch.models.pillar_encoder import prepare_pillar_inputs
+    from liso_tpu_torch.train import liso_loop
+    from liso_tpu_torch.utils.config import parse_config
+
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in kernels.launches}
+    res = {"phase": "etl", "frames": ETL_FRAMES,
+           "configs": "bev_100m_512 centerpoint liso",
+           "tolerance": {"odom_m": ETL_ODOM_ATOL, "icp_m": ETL_ICP_ATOL,
+                         "boxes": DET_BOX_ATOL}}
+    with tempfile.TemporaryDirectory(prefix="etl_", dir=OUT_DIR) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        res["points_per_frame"] = etl_write_drive(tmp / "raw")
+        res["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        create_kitti.main(["--kitti_raw_root", str(tmp / "raw"),
+                           "--target_dir", str(tmp / "out"), "--use_icp"])
+        res["convert_s"] = time.perf_counter() - t0
+        files = sorted((tmp / "out" / "kitti_raw").glob("*.npy"))
+        res["samples_written"] = len(files)
+        if len(files) != ETL_FRAMES - 2:
+            fail(f"create_kitti wrote {len(files)} samples, expected "
+                 f"{ETL_FRAMES - 2}")
+        odom, icp = [], []
+        for f in files:
+            d = np.load(f, allow_pickle=True).item()
+            odom.append(float(np.abs(d["odom_t0_t1"][:3, 3]
+                                     - [ETL_EGO_M, 0, 0]).max()))
+            icp.append(float(np.abs(d["kiss_odom_t0_t1"][:3, 3]
+                                    - [ETL_EGO_M, 0, 0]).max()))
+        res["odom_err_m"], res["icp_err_m"] = max(odom), max(icp)
+        if not (max(odom) <= ETL_ODOM_ATOL and max(icp) <= ETL_ICP_ATOL):
+            fail(f"ETL odometry off the planted motion: GPS {odom}, ICP {icp}")
+
+        cfg = parse_config(DEFAULT_CFG, ["bev_100m_512", "centerpoint", "liso"])
+        ds_cfg = build_datasets(cfg, False, target="object")[0].cfg
+        t0 = time.perf_counter()
+        ds = KittiRawDataset(ds_cfg, tmp / "out")
+        samples = [ds[i] for i in range(len(ds))]
+        res["read_s"] = time.perf_counter() - t0
+        pts = torch.from_numpy(np.stack([s.frame_t0.pcl for s in samples])).cuda()
+        valid = torch.from_numpy(np.stack([s.frame_t0.valid
+                                           for s in samples])).cuda()
+        res["valid_points"] = valid.sum(-1).tolist()
+        loop = liso_loop.LisoSelfTraining(cfg, lambda db: None, None,
+                                          tmp / "loop", data_cfg=ds_cfg,
+                                          device="cuda")
+        trainer, bev = loop.trainer, loop.bev
+        cells = prepare_pillar_inputs(pts, valid, bev).cell
+        k1 = check_scatter_max(torch.Generator(device="cuda").manual_seed(31),
+                               cells, bev.num_cells, 64, torch.float32)
+        trainer.predict_step(pts, valid)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        ms = []
+        for _ in range(DT_PREDICTS):
+            t0 = time.perf_counter()
+            boxes = trainer.predict_step(pts, valid)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(kernels.launches)
+        if launches != {**zero, "grid_scatter_max_occ": DT_PREDICTS}:
+            fail(f"ETL predict_step launches {launches}")
+        counts, dev_ms, _, _ = confirm_launches(
+            lambda: trainer.predict_step(pts, valid),
+            {**zero, "grid_scatter_max_occ": 1}, "an ETL predict_step")
+        ref = trainer.predict_step(pts, valid, plain=True)
+        fields = ("pos", "dims", "rot", "probs")
+        diff = max(float((getattr(boxes, f) - getattr(ref, f)).abs().max())
+                   for f in fields)
+        if (not torch.equal(boxes.valid, ref.valid) or not diff <= DET_BOX_ATOL
+                or not all(bool(torch.isfinite(getattr(boxes, f)).all())
+                           for f in fields)):
+            fail(f"ETL predict_step kept boxes differ from the plain run's "
+                 f"(max abs diff {diff})")
+        med = statistics.median(ms)
+        res.update({"batch": len(samples), "predict_ms_median": med,
+                    "predict_ms_max": max(ms), "launches": launches,
+                    "predict_kept": boxes.valid.sum(-1).tolist(),
+                    "predict_max_abs_diff_vs_plain": diff,
+                    "profiled": {"launches": counts, "device_ms": dev_ms,
+                                 "device_busy_share": dev_ms / med}})
+        del loop, trainer, boxes, ref
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    return [k1], res
 
 
 def run_path(serve, slim, det, frames, valid, plain=False):
@@ -3744,8 +4181,9 @@ def main() -> int:
         for name, (counts, dev_ms, rows, _) in profiles.items()
     }
 
-    k2_step = serving_step_layout(
-        step_corr_lookups(serve, slim, det, fmap, cn, frames[1], valid))
+    k2_step = k2_lookups_layout(corr_lookups(
+        lambda: serve.fused_streaming(slim, det, fmap, cn, frames[1], valid),
+        ITERS, "a streaming step"), "the streaming step")
     ref = run_path(serve, slim, det, frames, valid, plain=True)
     r_flow_ff, r_probs_ff, r_flow, _, r_probs = ref.pop("outputs")
     diffs = {
@@ -3830,6 +4268,17 @@ def main() -> int:
         emit({"phase": "kernel", "path": "detectors", **r})
         by_name[r["name"]]["detectors_shape"] = shape_entry(r)
     torch.cuda.empty_cache()
+    rr_k2, reference_raft = phase_reference_raft(kernels)
+    emit({**reference_raft, "nvidia_smi": smi})
+    emit({"phase": "kernel", "path": "reference_raft", "name": "corr_window_fwd",
+          **rr_k2})
+    by_name["corr_window_fwd"]["reference_raft_shape"] = rr_k2
+    etl_kres, etl = phase_etl(kernels)
+    emit({**etl, "nvidia_smi": smi})
+    for r in etl_kres:
+        emit({"phase": "kernel", "path": "etl", **r})
+        by_name[r["name"]]["etl_shape"] = shape_entry(r)
+    torch.cuda.empty_cache()
     parallel = phase_parallel(kernels)
     emit({**parallel, "nvidia_smi": smi})
     for r in kres:
@@ -3845,6 +4294,8 @@ def main() -> int:
             "eval": evaluation["launches"][name],
             "rounds": rounds["launches"][name],
             "detectors": detectors["launches"][name],
+            "reference_raft": reference_raft["launches"][name],
+            "etl": etl["launches"][name],
             "parallel": parallel["launches"][name]}
         r["launches"] = sum(r["launches_by_path"].values())
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
@@ -3857,6 +4308,9 @@ def main() -> int:
                    "eval_kernels": vkres, "eval": evaluation,
                    "rounds_kernels": rkres, "rounds": rounds,
                    "detectors_kernels": dtkres, "detectors": detectors,
+                   "reference_raft_k2": rr_k2,
+                   "reference_raft": reference_raft,
+                   "etl_kernels": etl_kres, "etl": etl,
                    "parallel": parallel,
                    "ptxas": ptxas,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
@@ -3898,7 +4352,7 @@ def main() -> int:
             "bound_by", "library_ms", "kernel_only_ms", "host_ms",
             "library_ms_prezeroed", "train_shape", "detect_train_shape",
             "slim_experiment_shape", "mine_shape", "eval_shape", "rounds_shape",
-            "detectors_shape",
+            "detectors_shape", "reference_raft_shape", "etl_shape",
             "second_shape", "decoder_shape", "host_steps_ms",
             "skewed_layout", "slim_step_layout", "serving_step_layout",
             "needed_pairs", "visited_pairs", "visited_over_needed",
@@ -3907,6 +4361,8 @@ def main() -> int:
           "slim_experiment_s": experiment["phase_s"],
           "mining_s": mining["phase_s"], "eval_s": evaluation["phase_s"],
           "rounds_s": rounds["phase_s"], "detectors_s": detectors["phase_s"],
+          "reference_raft_s": reference_raft["phase_s"],
+          "etl_s": etl["phase_s"],
           "parallel_s": parallel["phase_s"], "profiler_s": PROFILER_S,
           "nvidia_smi": smi})
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in kres]})

@@ -1,5 +1,5 @@
-"""nuScenes dataset (port of liso_tpu/data/nuscenes.py; its ETL entry
-`create_nuscenes` stays in the JAX package).
+"""nuScenes dataset and its ETL entry `create_nuscenes` (port of
+liso_tpu/data/nuscenes.py).
 
 Behavioral reference: liso/datasets/nuscenes_torch_dataset.py (690 LoC) +
 liso/datasets/nuscenes/create.py (686 LoC). The converted per-sample npy
@@ -9,7 +9,7 @@ so mining extrapolates motion x5 to the 2 Hz keyframes
 (liso/tracker/tracking.py:338-348 — here: time_delta_s=0.1 with velocity
 scaling handled by MiningCfg.time_between_frames_s).
 
-The ETL is devkit-free (liso_tpu/data/create_nuscenes.py parses the JSON
+The ETL is devkit-free (data/create_nuscenes.py parses the JSON
 tables directly, like the AV2 ETL's pyarrow approach); the dataset class
 reads both the reference `objects` list format and the grouped
 objects_{tk} format.
@@ -97,3 +97,17 @@ class NuscenesDataset(LidarDataset):
             return None
         return _boxes_from_objects(objects, NUSCENES_MOVABLE_MAP)
 
+
+def create_nuscenes(nusc_root, target_dir, version="v1.0-trainval",
+                    splits=None, use_icp=False):
+    """Devkit-free ETL entry (reference datasets/nuscenes/create.py) —
+    parses the JSON tables directly; see liso_tpu_torch.data.create_nuscenes."""
+    from liso_tpu_torch.data.create_nuscenes import main as _main
+
+    argv = ["--nusc_root", str(nusc_root), "--target_dir", str(target_dir),
+            "--version", version]
+    if splits:
+        argv += ["--splits", str(splits)]
+    if use_icp:
+        argv += ["--use_icp"]
+    _main(argv)

@@ -8,7 +8,10 @@ matrix (matches at or beyond DIST_MATCHING_THRESHOLD are dropped), and one
 copy of the [B, G] match back. The JAX package makes the same host call
 through one pure_callback. Everything else (the focal loss on matched
 against unmatched predictions, the L1 terms of the matched attributes)
-stays on the boxes' device.
+stays on the boxes' device. With a process group (`group`) the matching
+stays per sample, one host stage per rank on its own shard, and the two
+normalisers (the probs focal loss's positive count and the matched rows'
+count) are the global batch's (parallel/mesh.py).
 
 A prediction is a positive of the probs term iff a valid GT row is
 assigned to it. The reference instead writes every GT row's flag to its
@@ -27,6 +30,7 @@ import torch
 
 from liso_tpu_torch.losses.centerpoint_loss import focal_heatmap_loss
 from liso_tpu_torch.ops.boxes import Boxes
+from liso_tpu_torch.parallel.mesh import batch_total
 
 MAX_DIST = 1e5
 DIST_MATCHING_THRESHOLD = 2.0
@@ -63,10 +67,12 @@ def hungarian_match(gt: Boxes, pred: Boxes) -> torch.Tensor:
 
 
 def hungarian_matching_loss(
-    gt: Boxes, pred: Boxes, train_attrs=("pos", "dims", "rot", "probs")
+    gt: Boxes, pred: Boxes, train_attrs=("pos", "dims", "rot", "probs"),
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """gt [B, G], pred [B, P] fixed-capacity Boxes (pred.probs are logits).
-    Returns the per-attribute losses, in the reference's key order."""
+    Returns the per-attribute losses, in the reference's key order; with a
+    group, this rank's share of the global batch's."""
     b, p = pred.valid.shape
     match = hungarian_match(gt, pred)
     matched = (match >= 0) & gt.valid  # [B, G]
@@ -83,8 +89,9 @@ def hungarian_matching_loss(
         ).scatter_(1, to, True)[:, :p]
         target = is_matched_pred.float()[..., None]
         losses["probs"] = focal_heatmap_loss(
-            pred.probs, target, is_matched_pred, ignore_mask=~pred.valid)
-    n_match = matched.sum().clamp(min=1)
+            pred.probs, target, is_matched_pred, ignore_mask=~pred.valid,
+            group=group)
+    n_match = batch_total(matched.sum(), group).clamp(min=1)
     for attr in ("pos", "dims", "rot"):
         if attr not in train_attrs:
             continue

@@ -33,14 +33,17 @@ class Conv(nn.Conv2d):
     """flax `nn.Conv` (NCHW): XLA 'SAME' padding, optional compute dtype.
     `cudnn=False` runs the forward through PyTorch's own CUDA convolution
     (im2col and a cuBLAS GEMM) instead of cuDNN's, for a shape where
-    cuDNN's choice is pathological; the backward stays cuDNN's."""
+    cuDNN's choice is pathological; the backward stays cuDNN's. An int
+    `padding` pads every side by that much (flax's explicit ((p, p), (p,
+    p)), torch's own convention) instead of 'SAME'."""
 
     def __init__(self, cin, cout, k, stride=1, groups=1, bias=True,
-                 dtype=None, cudnn=True, device=None):
+                 dtype=None, cudnn=True, padding=None, device=None):
         super().__init__(cin, cout, k, stride=stride, padding=0,
                          groups=groups, bias=bias, device=device)
         self.dtype = dtype
         self.cudnn = cudnn
+        self.explicit_padding = padding
 
     def forward(self, x):
         if self.cudnn or not torch.backends.cudnn.enabled:
@@ -53,8 +56,11 @@ class Conv(nn.Conv2d):
 
     def _forward(self, x):
         k, s = self.kernel_size[0], self.stride[0]
-        ph = same_pads(x.shape[-2], k, s)
-        pw = same_pads(x.shape[-1], k, s)
+        if self.explicit_padding is None:
+            ph = same_pads(x.shape[-2], k, s)
+            pw = same_pads(x.shape[-1], k, s)
+        else:
+            ph = pw = (self.explicit_padding, self.explicit_padding)
         dt = _compute_dtype(self.dtype, x, self.weight)
         w = self.weight.to(dt)
         b = None if self.bias is None else self.bias.to(dt)
@@ -83,11 +89,15 @@ class ConvTranspose(nn.ConvTranspose2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    """flax `GroupNorm(group_size=1)`: per-channel instance norm with
-    affine; statistics in fp32, output in `dtype` (else the input's)."""
+    """flax `GroupNorm`: by default `group_size=1`, a per-channel instance
+    norm; `num_groups` groups of channels otherwise. Scale and bias unless
+    `affine=False` (flax's use_scale=use_bias=False); statistics in fp32,
+    output in `dtype` (else the input's)."""
 
-    def __init__(self, c, eps, dtype=None, device=None):
-        super().__init__(c, c, eps=eps, device=device)
+    def __init__(self, c, eps, dtype=None, num_groups=None, affine=True,
+                 device=None):
+        super().__init__(num_groups or c, c, eps=eps, affine=affine,
+                         device=device)
         self.dtype = dtype
 
     def forward(self, x):

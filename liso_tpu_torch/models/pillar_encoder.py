@@ -162,3 +162,11 @@ def fused_scatter_images(xs, prepared: PreparedPillars, bev: BevSetup,
         imgs.append(g[..., off : off + ci].reshape(b, h, w, ci))
         off += ci
     return imgs, occ.reshape(b, h, w, 1)
+
+
+def point_feature_mask(points: torch.Tensor, mask) -> torch.Tensor:
+    """The reference's `point_feat_mask` channel selection
+    (liso_config.yml:322-334) of the augmented features: the channels
+    whose flag in `mask` is set."""
+    idx = [i for i, m in enumerate(mask) if m]
+    return points[..., torch.tensor(idx, device=points.device)]

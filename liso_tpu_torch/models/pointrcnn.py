@@ -30,6 +30,7 @@ from liso_tpu_torch.ops.bev import BevSetup, point_cell_ids
 from liso_tpu_torch.ops.boxes import Boxes
 from liso_tpu_torch.ops.iou import iou_matrix_bev
 from liso_tpu_torch.losses.hungarian_loss import hungarian_matching_loss
+from liso_tpu_torch.parallel.mesh import batch_total
 
 
 def _masked_max(h: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:
@@ -199,19 +200,24 @@ class PointRCNNNet(nn.Module):
                 "refined": refined, "occupancy": occ}
 
 
-def pointrcnn_loss(out, points, valid, gt: Boxes) -> Tuple[torch.Tensor, dict]:
+def pointrcnn_loss(out, points, valid, gt: Boxes,
+                   group=None) -> Tuple[torch.Tensor, dict]:
     """Stage-1 foreground focal loss, both stages' Hungarian box losses
     (x0.5; stage 2's confidence is trained only by the re-scoring), and the
     re-scoring BCE of stage 2's logit against the refined box's best BEV
     IoU with the GT (positive > 0.55, negative < 0.45, the band between
-    ignored). Returns (total, {term: loss})."""
+    ignored). Returns (total, {term: loss}); with a process group, this
+    rank's share of the global batch's, every count taken over the group
+    (parallel/mesh.py)."""
     fg = gt.points_in_box_mask(points[..., :3]).any(-1) & valid
     p = torch.sigmoid(out["fg_logit"])
     pt = torch.where(fg, p, 1 - p)
     focal = -0.25 * (1 - pt) ** 2 * torch.log(pt.clamp(1e-7, 1))
-    losses = {"seg": torch.where(valid, focal, 0.0).sum() / fg.sum().clamp(min=1)}
+    losses = {"seg": torch.where(valid, focal, 0.0).sum()
+              / batch_total(fg.sum(), group).clamp(min=1)}
     for stage in ("proposals", "refined"):
-        for k, v in hungarian_matching_loss(gt, out[stage]).items():
+        for k, v in hungarian_matching_loss(gt, out[stage],
+                                            group=group).items():
             if stage == "refined" and k == "probs":
                 continue
             losses[f"{stage}_{k}"] = 0.5 * v
@@ -229,5 +235,6 @@ def pointrcnn_loss(out, points, valid, gt: Boxes) -> Tuple[torch.Tensor, dict]:
     z = ref.probs[..., 0].clamp(-30, 30)
     bce = z.clamp(min=0) - z * pos_m.to(z.dtype) + torch.log1p(
         torch.exp(-z.abs()))
-    losses["rescore"] = (bce * use).sum() / use.sum().clamp(min=1)
+    losses["rescore"] = ((bce * use).sum()
+                         / batch_total(use.sum(), group).clamp(min=1))
     return sum(losses.values()), losses

@@ -71,3 +71,31 @@ def point_cell_ids(
     cell = rc[..., 0] * w + rc[..., 1]
     cell = torch.where(in_range, cell, torch.full_like(cell, h * w))
     return cell, in_range, rc
+
+
+def gather_bev_map_at_points(bev_map: torch.Tensor, pts_xy: torch.Tensor,
+                             setup: BevSetup) -> torch.Tensor:
+    """Nearest-cell gather of a [H, W, C] map at [..., N, 2] metric points;
+    0 for points outside the grid (the reference's grid -> point gather,
+    HeadDecoder.apply_flow_to_points)."""
+    h, w = setup.grid_size
+    cell, in_range, _ = point_cell_ids(pts_xy, setup)
+    vals = bev_map.reshape(h * w, -1)[cell.long().clamp(0, h * w - 1)]
+    return torch.where(in_range[..., None], vals, 0.0)
+
+
+def bilinear_sample_2d(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of img [H, W, C] at pixel coords [..., 2] (row, col)
+    with align_corners=True semantics, clamped at the borders (the
+    reference's raft_code/utils.py:bilinear_sampler via grid_sample)."""
+    h, w = img.shape[:2]
+    r = coords[..., 0].clamp(0.0, h - 1.0)
+    c = coords[..., 1].clamp(0.0, w - 1.0)
+    r0, c0 = torch.floor(r), torch.floor(c)
+    fr, fc = (r - r0)[..., None], (c - c0)[..., None]
+    r0, c0 = r0.long(), c0.long()
+    r1, c1 = (r0 + 1).clamp(max=h - 1), (c0 + 1).clamp(max=w - 1)
+    return (img[r0, c0] * (1 - fr) * (1 - fc)
+            + img[r0, c1] * (1 - fr) * fc
+            + img[r1, c0] * fr * (1 - fc)
+            + img[r1, c1] * fr * fc)

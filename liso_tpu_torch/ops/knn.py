@@ -35,3 +35,8 @@ def nn_1(queries: torch.Tensor, refs: torch.Tensor, q_valid: torch.Tensor,
         dists.append(torch.where(v, best.clamp(min=0.0), BIG))
         idxs.append(torch.where(v, idx, 0))
     return torch.cat(dists), torch.cat(idxs).to(torch.int32)
+
+
+def knn_gather(refs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather ref points by NN index."""
+    return refs[idx.long()]

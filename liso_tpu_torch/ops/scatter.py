@@ -1,6 +1,6 @@
 """Scatter ops onto BEV grids and segment reductions over cell-sorted
-points (port of liso_tpu/ops/scatter.py, less `gather_grid`). Ids equal to
-`num_cells` are the drop bucket."""
+points (port of liso_tpu/ops/scatter.py). Ids equal to `num_cells` are the
+drop bucket."""
 from __future__ import annotations
 
 import torch
@@ -66,3 +66,10 @@ def scatter_max_grid(
     out = values.new_full((*values.shape[:-2], num_cells + 1, c), fill)
     out.scatter_reduce_(-2, idx, values, "amax", include_self=False)
     return out[..., :num_cells, :]
+
+
+def gather_grid(grid: torch.Tensor, cell_id: torch.Tensor) -> torch.Tensor:
+    """grid [num_cells, C], cell_id [N] -> [N, C], the per-point gather of
+    BEV features (the inverse of the scatters). Drop-bucket ids are
+    clamped to the last cell, not zeroed: the caller masks."""
+    return grid[cell_id.long().clamp(0, grid.shape[0] - 1)]

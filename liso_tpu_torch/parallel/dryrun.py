@@ -5,6 +5,8 @@ settings:
   * 5 SLIM train steps with the batch (n samples, one per rank) split over
     a process group, the loss falling;
   * 5 steps of the non-baseline CenterPoint the same way, the loss falling;
+  * 5 steps each of TransFusion, PointPillars and PointRCNN the same way,
+    each loss falling (the JAX dry run steps CenterPoint alone);
   * two workers of `LisoSelfTraining.run(total_steps=3)` over one shared log
     dir on a drive of two sequences: each mines its own sequence, both
     train on the merged DB in lock-step, and their parameters must end
@@ -33,13 +35,16 @@ N_POINTS = 256
 
 
 def _sharded_steps(group, device_type: str, n_devices: int) -> dict:
-    """The SLIM and the CenterPoint steps on this rank's shard; returns
-    both loss curves (the global batch's, the same on every rank)."""
+    """The SLIM step and every detector's step on this rank's shard;
+    returns the loss curves (the global batch's, the same on every
+    rank)."""
     from liso_tpu_torch.data.sample import FlowSample, PointCloud
     from liso_tpu_torch.losses.slim_loss import SlimLossCfg
     from liso_tpu_torch.ops.bev import BevSetup
     from liso_tpu_torch.ops.boxes import Boxes
     from liso_tpu_torch.train.detector_train import DetectorTrainer
+    from liso_tpu_torch.train.pointpillars_train import PointPillarsTrainer
+    from liso_tpu_torch.train.pointrcnn_train import PointRCNNTrainer
     from liso_tpu_torch.train.slim_train import SlimTrainer
 
     if device_type == "cpu":
@@ -78,7 +83,19 @@ def _sharded_steps(group, device_type: str, n_devices: int) -> dict:
                           device=dev)
     det_losses = [float(det.train_step(pts, valid, target)["loss/total"])
                   for _ in range(STEPS)]
-    return {"slim": slim_losses, "det": det_losses}
+    others = {}
+    for name, make in (
+            ("transfusion", lambda: DetectorTrainer(
+                bev, network="transfusion", total_steps=10, max_lr=1e-5,
+                pre_max_boxes=100, group=group, device=dev)),
+            ("pointpillars", lambda: PointPillarsTrainer(
+                bev, total_steps=10, max_lr=1e-5, group=group, device=dev)),
+            ("pointrcnn", lambda: PointRCNNTrainer(
+                bev, total_steps=10, max_lr=1e-5, group=group, device=dev))):
+        tr = make()
+        others[name] = [float(tr.train_step(pts, valid, target)["loss/total"])
+                        for _ in range(STEPS)]
+    return {"slim": slim_losses, "det": det_losses, "others": others}
 
 
 def _rounds_worker(group, device_type: str, log_dir: str) -> dict:
@@ -168,9 +185,11 @@ def dryrun_multichip(n_devices: int, device=None, workdir=None) -> dict:
     if not np.isfinite(slim).all() or not slim[-1] < slim[0]:
         raise AssertionError(f"sharded SLIM loss did not fall over "
                              f"{STEPS} steps: {slim}")
-    if not np.isfinite(det).all() or not det[-1] < det[0]:
-        raise AssertionError(f"sharded detector loss did not fall over "
-                             f"{STEPS} steps: {det}")
+    others = steps[0]["others"]
+    for name, curve in {"centerpoint": det, **others}.items():
+        if not np.isfinite(curve).all() or not curve[-1] < curve[0]:
+            raise AssertionError(f"sharded {name} loss did not fall over "
+                                 f"{STEPS} steps: {curve}")
     per_worker = [w["shard_boxes"] for w in workers]
     merged = [w["merged_boxes"] for w in workers]
     if not merged[0] == merged[1] == sum(per_worker):
@@ -188,5 +207,5 @@ def dryrun_multichip(n_devices: int, device=None, workdir=None) -> dict:
           f"{det[0]:.4f}->{det[-1]:.4f}; rounds-loop sharded mining "
           f"{per_worker} -> merged {merged[0]} boxes on both workers, "
           f"replica params bit-identical")
-    return {"slim_losses": slim, "det_losses": det,
+    return {"slim_losses": slim, "det_losses": det, "other_losses": others,
             "shard_boxes": per_worker, "merged_boxes": merged[0]}

@@ -16,12 +16,14 @@ convolutions and cuBLAS matmuls while a step runs, and the caller's
 settings are put back after it. `state_dict()` / `load_state_dict()` carry
 the train state through `utils/checkpoint.py`; `reset_optimizer()` starts
 AdamW and the schedule again. Given a process group (`group`,
-parallel/mesh.py), the centerpoint step takes the rank's shard of the batch
-and gives every rank the one-process step on the global batch: batch norms
-and the loss's counts reduce over the group, and the gradient is summed
-once before the update. The PointPillars and PointRCNN trainers
-(train/pointpillars_train.py, train/pointrcnn_train.py) hold the same
-state through the same class.
+parallel/mesh.py), a step takes the rank's shard of the batch and gives
+every rank the one-process step on the global batch: batch norms and the
+loss's counts reduce over the group (transfusion: the heatmap's and each
+Hungarian term's; the matching stays per sample, one host stage per rank),
+and the gradient is summed once before the update. The PointPillars and
+PointRCNN trainers (train/pointpillars_train.py,
+train/pointrcnn_train.py) hold the same state through the same class, and
+take a group the same way.
 """
 from __future__ import annotations
 
@@ -159,10 +161,6 @@ class DetectorTrainer(AdamWTrainState):
         group=None,
         device=None,
     ):
-        if group is not None and network != "centerpoint":
-            raise NotImplementedError(
-                f"a sharded {network} step: only centerpoint's is ported "
-                "(ROADMAP §A item 4b: the Hungarian stage across ranks)")
         self.device = resolve_device(device)
         self.bev = bev
         self.network = network
@@ -207,12 +205,13 @@ class DetectorTrainer(AdamWTrainState):
                                     tuple(heatmap.shape[1:3]), self.box_cfg)
         losses = {"heatmap": focal_heatmap_loss(
             heatmap, gt_maps["probs"], gt_maps["center_bool_mask"],
-            ignore_mask)}
+            ignore_mask, self.group)}
         layer_maps = aux["layer_maps"]
         for li, lm in enumerate(layer_maps):
             layer_flat = flatten_to_boxes(decode_box_maps(
                 apply_activations(lm, self.box_cfg), self.box_cfg, self.bev))
-            hung = hungarian_matching_loss(target_boxes, layer_flat)
+            hung = hungarian_matching_loss(target_boxes, layer_flat,
+                                           group=self.group)
             suffix = "" if li == len(layer_maps) - 1 else f"_aux{li}"
             for k, v in hung.items():
                 losses[f"hungarian_{k}{suffix}"] = 0.25 * v

@@ -278,13 +278,16 @@ class LisoSelfTraining:
         # host, and the loss
         self.step_timings: List[dict] = []
 
-    def _make_trainer(self):
+    def _make_trainer(self, group=None):
         """The trainer of `network.name`: DetectorTrainer for centerpoint
         (baseline or not, `network.centerpoint.use_baseline_parameters`) and
         transfusion, PointPillarsTrainer, PointRCNNTrainer. OneCycle spans
         the whole reset period, steps_per_round x
         drop_net_weights_every_nth_round (+2), as in the reference
-        (liso_cli.py:806-820)."""
+        (liso_cli.py:806-820). Every network's trainer takes `group`, a
+        process group over which its step is sharded (parallel/mesh.py);
+        the loop's own trainer has none: its workers train replicas, as
+        the JAX loop's hosts do."""
         opt = self.cfg.optimization
         if opt.rounds.active:
             drop = max(int(opt.rounds.drop_net_weights_every_nth_round), 1)
@@ -301,6 +304,7 @@ class LisoSelfTraining:
             confidence_threshold=float(
                 opt.rounds.confidence_threshold_mined_boxes
             ),
+            group=group,
             device=self.device,
         )
         name = self.cfg.network.name

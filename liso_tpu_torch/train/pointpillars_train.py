@@ -3,7 +3,12 @@ the anchor pipeline under AdamW + OneCycle, with the interface of
 `DetectorTrainer` (`model`, `train_step`, `predict_step`, the train state
 of `AdamWTrainState`), so that the rounds loop, mining, validation and the
 checkpoints drive it unchanged. Builds on the card unless the caller passes
-`device="cpu"`; without CUDA it raises. Steps run in fp32 (TF32 off)."""
+`device="cpu"`; without CUDA it raises. Steps run in fp32 (TF32 off).
+Given a process group (`group`, parallel/mesh.py) a step takes the rank's
+shard of the batch: the anchors, the anchor IoU and the target assignment
+stay per sample, the per-sample loss terms are averaged over the global
+batch, the batch norms take its statistics, and the gradient is summed
+over the ranks."""
 from __future__ import annotations
 
 import torch
@@ -19,6 +24,7 @@ from liso_tpu_torch.models.pointpillars import (
 from liso_tpu_torch.ops.bev import BevSetup
 from liso_tpu_torch.ops.boxes import Boxes
 from liso_tpu_torch.ops.nms import batched_nms
+from liso_tpu_torch.parallel.mesh import batch_mean
 from liso_tpu_torch.serve import resolve_device
 from liso_tpu_torch.train.detector_train import AdamWTrainState
 from liso_tpu_torch.train.slim_train import fp32_precision
@@ -41,10 +47,6 @@ class PointPillarsTrainer(AdamWTrainState):
         group=None,
         device=None,
     ):
-        if group is not None:
-            raise NotImplementedError(
-                "a sharded PointPillars step is not ported (ROADMAP §A item 4b: "
-                "the anchor IoU and the target assignment across ranks)")
         self.device = resolve_device(device)
         self.bev = bev
         self.anchor_cfg = anchor_cfg
@@ -56,7 +58,7 @@ class PointPillarsTrainer(AdamWTrainState):
         self.post_max_boxes = post_max_boxes
         self.confidence_threshold = confidence_threshold
         self._anchors = {}
-        self._init_state(max_lr, total_steps, weight_decay)
+        self._init_state(max_lr, total_steps, weight_decay, group)
 
     def anchors_flat(self, grid_hw) -> torch.Tensor:
         """[h * w * A, 7] anchors of the head grid, on the device."""
@@ -79,10 +81,10 @@ class PointPillarsTrainer(AdamWTrainState):
             cls.reshape(b, -1), reg.reshape(b, -1, 7),
             direction.reshape(b, -1, 2), self.anchors_flat((h, w)), target,
             self.anchor_cfg)
-        losses = {k: v.mean() for k, v in per_sample.items()}
+        losses = {k: batch_mean(v, self.group) for k, v in per_sample.items()}
         total = sum(losses.values())
-        metrics, _ = self._update(losses, total)
-        return {**metrics, "loss/total": total.detach()}
+        metrics, _ = self._update({**losses, "total": total}, total)
+        return metrics
 
     @torch.no_grad()
     @fp32_precision()

@@ -3,7 +3,12 @@ two-stage point pipeline under AdamW + OneCycle, with the interface of
 `DetectorTrainer` (`model`, `train_step`, `predict_step`, the train state
 of `AdamWTrainState`), so that the rounds loop, mining, validation and the
 checkpoints drive it unchanged. Builds on the card unless the caller passes
-`device="cpu"`; without CUDA it raises. Steps run in fp32 (TF32 off)."""
+`device="cpu"`; without CUDA it raises. Steps run in fp32 (TF32 off).
+Given a process group (`group`, parallel/mesh.py) a step takes the rank's
+shard of the batch: the proposals and the ball queries stay per sample,
+the loss's counts (foreground points, matched rows, re-scored boxes) and
+the batch norms' statistics are the global batch's, and the gradient is
+summed over the ranks."""
 from __future__ import annotations
 
 import torch
@@ -38,10 +43,6 @@ class PointRCNNTrainer(AdamWTrainState):
         group=None,
         device=None,
     ):
-        if group is not None:
-            raise NotImplementedError(
-                "a sharded PointRCNN step is not ported (ROADMAP §A item 4b: "
-                "the proposals and the Hungarian stage across ranks)")
         self.device = resolve_device(device)
         self.bev = bev
         self.model = PointRCNNNet(bev, cfg=cfg, device=self.device)
@@ -49,7 +50,7 @@ class PointRCNNTrainer(AdamWTrainState):
         self.nms_iou_threshold = nms_iou_threshold
         self.post_max_boxes = post_max_boxes
         self.confidence_threshold = confidence_threshold
-        self._init_state(max_lr, total_steps, weight_decay)
+        self._init_state(max_lr, total_steps, weight_decay, group)
 
     @fp32_precision()
     def train_step(self, points: torch.Tensor, valid: torch.Tensor,
@@ -58,9 +59,10 @@ class PointRCNNTrainer(AdamWTrainState):
         stages' Hungarian terms, rescore and total, and `lr`."""
         self.model.train()
         out = self.model(points, valid, plain=plain)
-        total, losses = pointrcnn_loss(out, points, valid, target)
-        metrics, _ = self._update(losses, total)
-        return {**metrics, "loss/total": total.detach()}
+        total, losses = pointrcnn_loss(out, points, valid, target,
+                                       self.group)
+        metrics, _ = self._update({**losses, "total": total}, total)
+        return metrics
 
     @torch.no_grad()
     @fp32_precision()

@@ -72,6 +72,14 @@ def test_package_imports_with_jax_blocked():
         "import liso_tpu_torch.ops.ball_query\n"
         "import liso_tpu_torch.models.time_reduce_conv\n"
         "import liso_tpu_torch.parallel.mesh, liso_tpu_torch.parallel.dryrun\n"
+        "import liso_tpu_torch.models.torch_compat\n"
+        "import liso_tpu_torch.visu.pcl_image\n"
+        "import liso_tpu_torch.data.create_kitti\n"
+        "import liso_tpu_torch.data.create_kitti_tracking\n"
+        "import liso_tpu_torch.data.create_kitti_object\n"
+        "import liso_tpu_torch.data.create_nuscenes\n"
+        "import liso_tpu_torch.data.create_waymo\n"
+        "import liso_tpu_torch.data.create_av2\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -185,3 +193,23 @@ def test_kernels_build_lazily():
         "grid_reduce_add_c1", "corr_window_bwd", "knn_banded",
         "grid_reduce_add", "scatter_max_vjp",
     }
+
+
+def test_etl_and_visu_import_without_pyarrow_or_matplotlib():
+    """The GPU machine has no pyarrow: the ETL modules and pcl_image import
+    them only inside the functions that need them."""
+    code = (
+        "import sys\n"
+        "for m in ('pyarrow', 'matplotlib', 'jax', 'liso_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import liso_tpu_torch.data.create_av2, liso_tpu_torch.visu.pcl_image\n"
+        "import liso_tpu_torch.data.create_kitti\n"
+        "import liso_tpu_torch.data.create_kitti_tracking\n"
+        "import liso_tpu_torch.data.create_kitti_object\n"
+        "import liso_tpu_torch.data.create_nuscenes\n"
+        "import liso_tpu_torch.data.create_waymo\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

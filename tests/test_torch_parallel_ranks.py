@@ -1,6 +1,7 @@
-"""Data and rank functions of tests/test_torch_parallel.py (numpy and the
-port only: the ranks are spawned processes, which import this module and
-never JAX). It holds no test of its own.
+"""Data and rank functions of tests/test_torch_parallel.py and
+tests/test_torch_parallel_detectors.py (numpy and the port only: the ranks
+are spawned processes, which import this module and never JAX). It holds no
+test of its own.
 
 The global batch is 2, one sample per rank, and the shards are unbalanced
 on purpose: sample 1 has fewer valid points, fewer points inside a pillar
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from liso_tpu_torch.data.sample import FlowSample, PointCloud
+from liso_tpu_torch.models.box_decode import BoxPredictionCfg
+from liso_tpu_torch.models.layers import BatchNorm
 from liso_tpu_torch.ops.bev import BevSetup
 from liso_tpu_torch.ops.boxes import Boxes
 from liso_tpu_torch.parallel import mesh
@@ -200,20 +203,19 @@ def helper_cases(group) -> dict:
 
 
 def refusals(group) -> dict:
-    """The message each trainer without a sharded step raises with."""
+    """For each of the trainers that once refused a group: the message it
+    raises with (None when it builds), and whether every BatchNorm of its
+    model took the group."""
     out = {}
-    for name, make in (
-            ("transfusion", lambda: DetectorTrainer(
-                det_bev(), network="transfusion", device="cpu", group=group)),
-            ("pointpillars", lambda: PointPillarsTrainer(
-                det_bev(), device="cpu", group=group)),
-            ("pointrcnn", lambda: PointRCNNTrainer(
-                det_bev(), device="cpu", group=group))):
+    for name in OTHER_NETWORKS:
         try:
-            make()
-            out[name] = None
+            tr = other_trainer(name, group)
+            bns = [m for m in tr.model.modules()
+                   if isinstance(m, BatchNorm)]
+            out[name] = (None, bool(bns) and all(m.group is group
+                                                 for m in bns))
         except NotImplementedError as e:
-            out[name] = str(e)
+            out[name] = (str(e), False)
     return out
 
 
@@ -232,4 +234,75 @@ def run_cases(group, slim_state, det_states) -> dict:
         dt.load_state_dict(det_states[net])
         out[net] = run_det_step(dt, mesh.shard_batch(group,
                                                      det_batch(det_data())))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# TransFusion, PointPillars and PointRCNN (test_torch_parallel_detectors.py)
+# ---------------------------------------------------------------------------
+OTHER_NETWORKS = ("transfusion", "pointpillars", "pointrcnn")
+# the transfusion preset's box prediction (liso_config.yml:549-566 with
+# predict_rot_as_vector), as tests/test_torch_transfusion.py
+TF_BOX = dict(position_method="global_absolute",
+              dimensions_method="predict_abs_size", rotation_method="vector",
+              activations={"pos": "none", "rot": "none", "dims": "none",
+                           "probs": "none"})
+TF_LAYERS = 2
+OTHER_CFG = dict(max_lr=1e-5, total_steps=100, post_max_boxes=40)
+# PointPillars' force-match takes each GT's best anchor, a rounding where
+# two anchors lie within fp32 noise: the scene is moved by PP_SHIFT_M so
+# that every GT's best anchor leads its second by more than 1e-3
+# (tests/test_torch_pointpillars.py)
+PP_SHIFT_M = 0.2
+# PointRCNN: one more target box in each sample near the proposals of the
+# random net of the test's seed, which gathers them at a corner of the
+# cloud, so that both stages' Hungarian terms have matches (none with the
+# first proposal: the reference's padded rows would clear it)
+PR_EXTRA = ((-17.0, 18.0), (-19.5, 18.5))
+
+
+def other_trainer(net: str, group=None):
+    if net == "transfusion":
+        return DetectorTrainer(det_bev(), network="transfusion",
+                               box_cfg=BoxPredictionCfg(**TF_BOX),
+                               num_decoder_layers=TF_LAYERS,
+                               pre_max_boxes=200, device="cpu", group=group,
+                               **OTHER_CFG)
+    if net == "pointpillars":
+        return PointPillarsTrainer(det_bev(), device="cpu", group=group,
+                                   **OTHER_CFG)
+    return PointRCNNTrainer(det_bev(), device="cpu", group=group,
+                            **OTHER_CFG)
+
+
+def other_data(net: str):
+    """det_data's unbalanced batch (sample 0: two objects and their boxes;
+    sample 1: background, 30% of its points invalid, no box), moved for
+    PointPillars, and with one more box a sample for PointRCNN (so sample
+    0 holds 3 boxes and sample 1 one)."""
+    pts, valid, boxes = det_data()
+    if net == "pointpillars":
+        pts[..., :2] += PP_SHIFT_M
+        boxes["pos"][0, :2, :2] += PP_SHIFT_M
+    if net == "pointrcnn":
+        for i, (x, y) in enumerate(PR_EXTRA):
+            j = int(boxes["valid"][i].sum())
+            boxes["pos"][i, j] = [x, y, -1.0]
+            boxes["dims"][i, j] = [4.0, 2.0, 1.5]
+            boxes["rot"][i, j] = 0.1
+            boxes["probs"][i, j] = 1.0
+            boxes["valid"][i, j] = True
+    return pts, valid, boxes
+
+
+def run_other_cases(group, states) -> dict:
+    """One step of each of TransFusion, PointPillars and PointRCNN from the
+    given states, on this rank's shard."""
+    torch.set_num_threads(1)
+    out = {}
+    for net in OTHER_NETWORKS:
+        tr = other_trainer(net, group)
+        tr.load_state_dict(states[net])
+        out[net] = run_det_step(tr, mesh.shard_batch(
+            group, det_batch(other_data(net))))
     return out

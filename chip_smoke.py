@@ -168,9 +168,10 @@ Phases, each printing JSON lines:
                profiler); the forward through the plain versions (flow
                within FLOW_ATOL, logits within RR_LOGIT_ATOL); the card
                against the port on the CPU at grid RR_CPU_GRID.
-  13. etl    - a KITTI-raw drive written from data/synthetic.py
-               (velodyne .bin, OXTS packets, calibration), converted by the
-               port's create_kitti with ICP (odometry held to the planted
+  13. etl    - a KITTI-raw drive of 120800 points a frame (a street
+               scene and data/synthetic.py's moving objects; velodyne
+               .bin, OXTS packets, calibration), converted by the port's
+               create_kitti with ICP (odometry held to the planted
                motion), read by KittiRawDataset, and the `bev_100m_512
                centerpoint liso` detector's predict_step on the card over
                the frames read: K1 held bitwise and timed at their cells,
@@ -350,18 +351,19 @@ P_O_LOSS_RTOL = 5e-5
 # and cuDNN's against oneDNN's fp32 sums, x5).
 RR_ITERS, RR_WARMUP, RR_CALLS, RR_CPU_GRID = 6, 2, 8, 128
 RR_LOGIT_ATOL, RR_CPU_FLOW_ATOL, RR_CPU_LOGIT_ATOL = 2e-2, 1e-2, 5e-3
-# The ETL: a KITTI-raw drive written from data/synthetic.py (ETL_FRAMES
-# frames of ETL_BG background points and 2 moving objects, velodyne .bin,
-# OXTS packets, identity IMU-to-velo calibration), converted by the port's
-# create_kitti with ICP, read by KittiRawDataset at the `bev_100m_512
-# centerpoint liso` DataCfg, and the detector's predict_step on the card
-# over the frames read. The planted ego motion: odometry within
-# ETL_ODOM_ATOL (GPS) and ETL_ICP_ATOL (ICP) of ETL_EGO_M per frame. The
-# scene's static points are uniform noise with no surfaces: at 60000 of
-# them (0.25 m apart) point-to-point ICP settles near no motion (1.1 m off
-# the planted 1.2 m, on the H100 machine as on the CPU), at 8000 (0.7 m
-# apart) it finds the motion within 5e-3 m.
-ETL_FRAMES, ETL_BG, ETL_EGO_M, ETL_ODOM_ATOL, ETL_ICP_ATOL = 6, 8000, 1.2, 2e-3, 0.05
+# The ETL: a KITTI-raw drive at a KITTI velodyne frame's size (about 120k
+# points): ETL_FRAMES frames, each ETL_BG static points of a street scene
+# (etl_static_scene: a ground plane, building walls and poles) and the 2
+# moving objects of data/synthetic.py, as velodyne .bin, OXTS packets and
+# an identity IMU-to-velo calibration; converted by the port's create_kitti
+# with ICP, read by KittiRawDataset at the `bev_100m_512 centerpoint liso`
+# DataCfg, and the detector's predict_step on the card over the frames
+# read. The planted ego motion: odometry within ETL_ODOM_ATOL (GPS) and
+# ETL_ICP_ATOL (ICP) of ETL_EGO_M per frame. The static scene needs
+# surfaces: point-to-point ICP over voxel-downsampled clouds finds the
+# motion from walls and poles, and settles near no motion on static points
+# that are uniform noise as dense as a real frame.
+ETL_FRAMES, ETL_BG, ETL_EGO_M, ETL_ODOM_ATOL, ETL_ICP_ATOL = 6, 120000, 1.2, 2e-3, 0.05
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -3346,24 +3348,19 @@ def p_step_launches(kernels) -> dict:
     }
 
 
-def p_other_trainer(net, ds_cfg, group, log_dir):
+def p_other_trainer(net, ds_cfg, group):
     """`bev_100m_512 <net> liso`'s trainer as the rounds loop builds it
-    (LisoSelfTraining._make_trainer), its step sharded over `group` when
-    one is given."""
+    (liso_loop.make_trainer), its step sharded over `group` when one is
+    given."""
     from liso_tpu_torch.cli.common import DEFAULT_CFG
     from liso_tpu_torch.train import liso_loop
     from liso_tpu_torch.utils.config import parse_config
 
     cfg = parse_config(DEFAULT_CFG, ["bev_100m_512", net, "liso"])
-    loop = liso_loop.LisoSelfTraining(cfg, lambda db: None, None, log_dir,
-                                      data_cfg=ds_cfg, device="cuda")
-    if group is None:
-        return loop.trainer
-    loop.trainer = None
-    return loop._make_trainer(group)
+    return liso_loop.make_trainer(cfg, ds_cfg.bev, group=group, device="cuda")
 
 
-def parallel_rank(group, slim_batch, det_batch, det_kwargs, ds_cfg, log_dir):
+def parallel_rank(group, slim_batch, det_batch, det_kwargs, ds_cfg):
     """One rank of the parallel phase (a spawned process): the SLIM, the
     CenterPoint and then each of P_OTHERS' steps on this rank's shard of
     the global batch: the first step (compared with the one-process step),
@@ -3390,9 +3387,8 @@ def parallel_rank(group, slim_batch, det_batch, det_kwargs, ds_cfg, log_dir):
             ("det", lambda: DetectorTrainer(**det_kwargs, group=group,
                                             device="cuda"), det_batch, False)]
     for net in P_OTHERS:
-        runs.append((net, lambda net=net: p_other_trainer(
-            net, ds_cfg, group, Path(log_dir) / f"rank{rank}_{net}"),
-            det_batch, False))
+        runs.append((net, lambda net=net: p_other_trainer(net, ds_cfg, group),
+                     det_batch, False))
     for name, make, batch, slim in runs:
         other = name in P_OTHERS
         with cudnn_deterministic(not slim):
@@ -3594,8 +3590,7 @@ def phase_parallel(kernels):
         t0 = time.perf_counter()
         names = ("slim", "det", *P_OTHERS)
         ranks = mesh.RankProcesses(parallel_rank, P_WORLD,
-                                   (slim_batch, det_batch, det_kw, ds_cfg,
-                                    str(tmp / "rank_loops")),
+                                   (slim_batch, det_batch, det_kw, ds_cfg),
                                    backend="gloo", workdir=tmp / "ranks",
                                    timeout_s=P_RANKS_TIMEOUT_S).join()
         res["ranks_wall_s"] = parts["ranks"] = time.perf_counter() - t0
@@ -3610,8 +3605,7 @@ def phase_parallel(kernels):
                 if slim:
                     trainer = p_slim_trainer(None)
                 elif other:
-                    trainer = p_other_trainer(name, ds_cfg, None,
-                                              tmp / f"one_{name}")
+                    trainer = p_other_trainer(name, ds_cfg, None)
                 else:
                     trainer = DetectorTrainer(**det_kw, device="cuda")
                 batch = mesh.map_tree(lambda t: t.cuda(),
@@ -3689,8 +3683,7 @@ def phase_parallel(kernels):
         det_gpu = mesh.map_tree(lambda t: t.cuda(), det_batch)
         makers = {"det": lambda g: DetectorTrainer(**det_kw, group=g,
                                                    device="cuda"),
-                  P_O_NCCL: lambda g: p_other_trainer(
-                      P_O_NCCL, ds_cfg, g, tmp / f"nccl_{P_O_NCCL}")}
+                  P_O_NCCL: lambda g: p_other_trainer(P_O_NCCL, ds_cfg, g)}
         states = {name: {} for name in makers}
         with cudnn_deterministic():
             group = mesh.make_mesh(1, 0, "nccl", tmp / "nccl")
@@ -3879,18 +3872,55 @@ def etl_oxts_line(tx: float, lat0: float = 49.011) -> str:
     return " ".join(f"{v:.12f}" for v in head + tail)
 
 
+def etl_static_scene(rng, n: int, extent: float = 45.0):
+    """`n` static points [n, 4] (x, y, z, intensity) of a street scene in
+    the world frame, the sensor 1.73 m above the ground: half on the ground
+    plane, 35% on the walls of 16 buildings (rectangles of random size and
+    heading beside the road), the rest on 120 poles of 0.15 m radius off
+    the road; in random order."""
+    import numpy as np
+
+    n_ground, n_walls = n // 2, (7 * n) // 20
+    n_poles = n - n_ground - n_walls
+    ground = np.stack([rng.uniform(-extent, extent, n_ground),
+                       rng.uniform(-extent, extent, n_ground),
+                       rng.normal(-1.73, 0.02, n_ground)], -1)
+    nb = 16
+    cx = rng.uniform(-extent + 10, extent - 10, nb)
+    cy = rng.choice([-1, 1], nb) * rng.uniform(10, extent - 10, nb)
+    length, width = rng.uniform(6, 20, nb), rng.uniform(6, 14, nb)
+    height, yaw = rng.uniform(3, 10, nb), rng.uniform(-np.pi, np.pi, nb)
+    b, face = rng.integers(0, nb, n_walls), rng.integers(0, 4, n_walls)
+    u = rng.uniform(-0.5, 0.5, n_walls)
+    lx = np.where(face < 2, u * length[b],
+                  np.where(face == 2, 0.5, -0.5) * length[b])
+    ly = np.where(face < 2, np.where(face == 0, 0.5, -0.5) * width[b],
+                  u * width[b])
+    c, s = np.cos(yaw[b]), np.sin(yaw[b])
+    walls = np.stack([cx[b] + c * lx - s * ly, cy[b] + s * lx + c * ly,
+                      -1.73 + rng.uniform(0, 1, n_walls) * height[b]], -1)
+    px, py = rng.uniform(-extent, extent, (2, 120))
+    px, py = px[np.abs(py) > 4], py[np.abs(py) > 4]
+    k, a = rng.integers(0, len(px), n_poles), rng.uniform(0, 2 * np.pi, n_poles)
+    poles = np.stack([px[k] + 0.15 * np.cos(a), py[k] + 0.15 * np.sin(a),
+                      -1.73 + rng.uniform(0, 4, n_poles)], -1)
+    pts = np.concatenate([ground, walls, poles])[rng.permutation(n)]
+    return np.concatenate([pts, rng.uniform(0, 1, (n, 1))], -1)
+
+
 def etl_write_drive(root: Path) -> int:
-    """A KITTI-raw drive from data/synthetic.py under `root`
-    (2011_09_26/2011_09_26_drive_0001_sync): each frame's points in the
-    sensor frame as velodyne .bin (float32 x, y, z, intensity), its OXTS
-    packet, and the identity IMU-to-velo calibration. Returns the points
-    written per frame."""
+    """A KITTI-raw drive under `root` (2011_09_26/2011_09_26_drive_0001_sync):
+    each frame's points (etl_static_scene and data/synthetic.py's moving
+    objects and ego poses) in the sensor frame as velodyne .bin (float32 x,
+    y, z, intensity), its OXTS packet, and the identity IMU-to-velo
+    calibration. Returns the points written per frame."""
     import numpy as np
 
     from liso_tpu_torch.data.synthetic import SyntheticSequence
 
-    seq = SyntheticSequence(n_frames=ETL_FRAMES, n_bg=ETL_BG,
+    seq = SyntheticSequence(n_frames=ETL_FRAMES, n_bg=0,
                             ego_speed=ETL_EGO_M, seed=3)
+    static = etl_static_scene(np.random.default_rng(3), ETL_BG)
     date = root / "2011_09_26"
     drive = date / "2011_09_26_drive_0001_sync"
     (drive / "velodyne_points" / "data").mkdir(parents=True)
@@ -3898,7 +3928,7 @@ def etl_write_drive(root: Path) -> int:
     (date / "calib_imu_to_velo.txt").write_text(
         "R: 1 0 0 0 1 0 0 0 1\nT: 0 0 0\n")
     for t in range(ETL_FRAMES):
-        pts, _, _ = seq.frame_world(t)
+        pts = np.concatenate([static, seq.frame_world(t)[0]])
         s_T_w = np.linalg.inv(seq.world_T_sensor(t))
         xyz = pts[:, :3] @ s_T_w[:3, :3].T + s_T_w[:3, 3]
         np.concatenate([xyz, pts[:, 3:]], -1).astype(np.float32).tofile(

@@ -190,6 +190,63 @@ def detector_predictor(det: DetectorTrainer, device):
     return predict
 
 
+def box_prediction_cfg(cfg) -> BoxPredictionCfg:
+    """The box representation of `cfg.box_prediction`."""
+    bp = cfg.box_prediction
+    return BoxPredictionCfg(
+        position_method=bp.position_representation.method,
+        num_box_pos_dims=int(bp.position_representation.num_box_pos_dims),
+        box_z_pos_prior_min=float(bp.position_representation.box_z_pos_prior_min),
+        box_z_pos_prior_max=float(bp.position_representation.box_z_pos_prior_max),
+        dimensions_method=bp.dimensions_representation.method,
+        box_len_prior_min=float(bp.dimensions_representation.box_len_prior_min),
+        box_len_prior_max=float(bp.dimensions_representation.box_len_prior_max),
+        rotation_method=bp.rotation_representation.method,
+        activations=dict(bp.activations),
+    )
+
+
+def make_trainer(cfg, bev, *, group=None, device=None):
+    """The trainer of `cfg.network.name`: DetectorTrainer for centerpoint
+    (baseline or not, `network.centerpoint.use_baseline_parameters`) and
+    transfusion, PointPillarsTrainer, PointRCNNTrainer. OneCycle spans
+    the whole reset period, steps_per_round x
+    drop_net_weights_every_nth_round (+2), as in the reference
+    (liso_cli.py:806-820). Every network's trainer takes `group`, a
+    process group over which its step is sharded (parallel/mesh.py)."""
+    opt = cfg.optimization
+    if opt.rounds.active:
+        drop = max(int(opt.rounds.drop_net_weights_every_nth_round), 1)
+        steps = int(opt.rounds.steps_per_round) * drop + 2
+    else:
+        steps = int(opt.num_training_steps) + 2
+    common = dict(
+        max_lr=float(opt.learning_rate),
+        total_steps=steps,
+        nms_iou_threshold=float(cfg.nms_iou_threshold),
+        post_max_boxes=int(cfg.data.tracking_cfg.max_num_boxes_after_nms),
+        confidence_threshold=float(
+            opt.rounds.confidence_threshold_mined_boxes
+        ),
+        group=group,
+        device=device,
+    )
+    name = cfg.network.name
+    if name == "pointpillars":
+        return PointPillarsTrainer(bev, **common)
+    if name == "pointrcnn":
+        return PointRCNNTrainer(bev, **common)
+    return DetectorTrainer(
+        bev,
+        network=name,
+        box_cfg=box_prediction_cfg(cfg),
+        use_baseline_parameters=bool(
+            cfg.network.centerpoint.use_baseline_parameters
+        ),
+        **common,
+    )
+
+
 class LisoSelfTraining:
     def __init__(
         self,
@@ -244,18 +301,7 @@ class LisoSelfTraining:
             dims_quantile=0.6,
         )
 
-        bp = cfg.box_prediction
-        self.box_cfg = BoxPredictionCfg(
-            position_method=bp.position_representation.method,
-            num_box_pos_dims=int(bp.position_representation.num_box_pos_dims),
-            box_z_pos_prior_min=float(bp.position_representation.box_z_pos_prior_min),
-            box_z_pos_prior_max=float(bp.position_representation.box_z_pos_prior_max),
-            dimensions_method=bp.dimensions_representation.method,
-            box_len_prior_min=float(bp.dimensions_representation.box_len_prior_min),
-            box_len_prior_max=float(bp.dimensions_representation.box_len_prior_max),
-            rotation_method=bp.rotation_representation.method,
-            activations=dict(bp.activations),
-        )
+        self.box_cfg = box_prediction_cfg(cfg)
         self.trainer = self._make_trainer()
         # the detector that trains and mines in rounds >= 1: `trainer`,
         # which holds its train state (in JAX the train state itself); None
@@ -279,48 +325,11 @@ class LisoSelfTraining:
         self.step_timings: List[dict] = []
 
     def _make_trainer(self, group=None):
-        """The trainer of `network.name`: DetectorTrainer for centerpoint
-        (baseline or not, `network.centerpoint.use_baseline_parameters`) and
-        transfusion, PointPillarsTrainer, PointRCNNTrainer. OneCycle spans
-        the whole reset period, steps_per_round x
-        drop_net_weights_every_nth_round (+2), as in the reference
-        (liso_cli.py:806-820). Every network's trainer takes `group`, a
-        process group over which its step is sharded (parallel/mesh.py);
-        the loop's own trainer has none: its workers train replicas, as
-        the JAX loop's hosts do."""
-        opt = self.cfg.optimization
-        if opt.rounds.active:
-            drop = max(int(opt.rounds.drop_net_weights_every_nth_round), 1)
-            steps = int(opt.rounds.steps_per_round) * drop + 2
-        else:
-            steps = int(opt.num_training_steps) + 2
-        common = dict(
-            max_lr=float(opt.learning_rate),
-            total_steps=steps,
-            nms_iou_threshold=float(self.cfg.nms_iou_threshold),
-            post_max_boxes=int(
-                self.cfg.data.tracking_cfg.max_num_boxes_after_nms
-            ),
-            confidence_threshold=float(
-                opt.rounds.confidence_threshold_mined_boxes
-            ),
-            group=group,
-            device=self.device,
-        )
-        name = self.cfg.network.name
-        if name == "pointpillars":
-            return PointPillarsTrainer(self.bev, **common)
-        if name == "pointrcnn":
-            return PointRCNNTrainer(self.bev, **common)
-        return DetectorTrainer(
-            self.bev,
-            network=name,
-            box_cfg=self.box_cfg,
-            use_baseline_parameters=bool(
-                self.cfg.network.centerpoint.use_baseline_parameters
-            ),
-            **common,
-        )
+        """The trainer of `network.name` (make_trainer); the loop's own
+        trainer has none: its workers train replicas, as the JAX loop's
+        hosts do."""
+        return make_trainer(self.cfg, self.bev, group=group,
+                            device=self.device)
 
     # ------------------------------------------------------------------
     def _bootstrap_detect_fn(self):

@@ -13,13 +13,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
 import shutil
 import subprocess
 from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
+
+from liso_tpu_torch.utils.atomic import publish
 
 NATIVE_SRC = Path(__file__).resolve().parent.parent / "native" / "icp.cpp"
 CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
@@ -36,10 +37,10 @@ def _build_native():
     so = NATIVE_SRC.parent / "_build" / f"libliso_native-{h.hexdigest()[:16]}.so"
     if not so.exists():
         so.parent.mkdir(exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(NATIVE_SRC)],
-                       check=True, capture_output=True, timeout=300)
-        os.replace(tmp, so)  # atomic: concurrent builds race harmlessly
+        # atomic: concurrent builds race harmlessly
+        publish(so, lambda tmp: subprocess.run(
+            [cxx, *CXX_FLAGS, "-o", str(tmp), str(NATIVE_SRC)],
+            check=True, capture_output=True, timeout=300))
     return so
 
 

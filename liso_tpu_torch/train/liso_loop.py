@@ -62,6 +62,7 @@ from liso_tpu_torch.tracker.mining import (
 from liso_tpu_torch.train.detector_train import DetectorTrainer
 from liso_tpu_torch.train.pointpillars_train import PointPillarsTrainer
 from liso_tpu_torch.train.pointrcnn_train import PointRCNNTrainer
+from liso_tpu_torch.utils.atomic import publish_text
 from liso_tpu_torch.utils.checkpoint import (
     check_checkpoint_config_sanity,
     latest_step,
@@ -564,7 +565,9 @@ class LisoSelfTraining:
         digest = h.hexdigest()
         out = self.log_dir / f"param_sync_step_{step}"
         out.mkdir(parents=True, exist_ok=True)
-        (out / f"digest_worker{self.worker_id}").write_text(digest)
+        # whole or not at all: a peer that read a half-written digest would
+        # take equal replicas for divergent ones
+        publish_text(out / f"digest_worker{self.worker_id}", digest)
         deadline = time.time() + timeout_s
         peers = {}
         missing = set(range(self.world_size)) - {self.worker_id}

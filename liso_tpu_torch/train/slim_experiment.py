@@ -31,6 +31,7 @@ from liso_tpu_torch.models.slim import movavg_value
 from liso_tpu_torch.ops.bev import BevSetup, point_cell_ids
 from liso_tpu_torch.ops.scatter import scatter_mean_grid
 from liso_tpu_torch.train.slim_train import SlimTrainer
+from liso_tpu_torch.utils.atomic import publish
 from liso_tpu_torch.utils.checkpoint import (
     check_checkpoint_config_sanity,
     latest_step,
@@ -130,6 +131,13 @@ def slim_trainer_from_cfg(cfg, bev: BevSetup, num_train_samples: int,
         detect_anomaly=bool(getattr(sl, "set_detect_anomaly", False)),
         device=device,
     )
+
+
+def _savez_compressed(path: Path, arrays: Dict[str, np.ndarray]) -> None:
+    """np.savez_compressed through a file object, which keeps `path` as
+    given (to a path not ending in .npz it would add the suffix)."""
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **arrays)
 
 
 def export_sample(trainer: SlimTrainer, dataset: LidarDataset, idx: int,
@@ -332,7 +340,10 @@ class SlimExperiment:
         skip_existing: bool = True,
         max_samples: Optional[int] = None,
     ):
-        """run_inference_only: per-sample npz with the 6 flow grids."""
+        """run_inference_only: per-sample npz with the 6 flow grids. Each
+        npz appears whole or not at all, so a rerun after a crash writes
+        the sample that was cut off (the JAX export writes in place, and a
+        rerun with skip_existing keeps the truncated file)."""
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         n_done = 0
@@ -344,7 +355,8 @@ class SlimExperiment:
             target = out_dir / f"{dataset[idx].sample_id}.npz"
             if skip_existing and target.exists():
                 continue
-            np.savez_compressed(target, **export_sample(
-                self.trainer, dataset, idx))
+            arrays = export_sample(self.trainer, dataset, idx)
+            # whole or not at all: skip_existing trusts a file by its name
+            publish(target, lambda tmp: _savez_compressed(tmp, arrays))
             n_done += 1
         return n_done

@@ -9,15 +9,22 @@ layout that `latest_step` parses, the `format_version` file and its
 warning, and the config sanity check are the JAX package's. Orbax
 checkpoints written by JAX are not read here; a JAX state is carried across
 by `liso_tpu_torch.weights.load_slim_train_state`.
+
+A save is atomic, as orbax's is: the step directory is written under a
+temporary name, which is not all digits, and renamed onto `<step>` once
+`state.pt` is whole (`utils/atomic.publish`). A save that dies leaves
+every earlier step as it was, and `latest_step` never names a partial
+one, as it never names orbax's `*.orbax-checkpoint-tmp-*`.
 """
 from __future__ import annotations
 
-import shutil
 import sys
 from pathlib import Path
 from typing import Any, Optional
 
 import torch
+
+from liso_tpu_torch.utils.atomic import publish, publish_text
 
 # bump when trained-weight semantics change incompatibly; restore warns on
 # older checkpoints. v2: corr window lookup switched from edge-clamping to
@@ -29,16 +36,16 @@ STATE_FILE = "state.pt"
 
 def save_checkpoint(ckpt_dir, step: int, trainer: Any) -> Path:
     """Write `trainer.state_dict()` as step `step`; a same-step resave
-    replaces the earlier one."""
+    replaces the earlier one only once it is whole."""
     ckpt_dir = Path(ckpt_dir).absolute()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    (ckpt_dir / "format_version").write_text(str(FORMAT_VERSION))
-    target = ckpt_dir / str(step)
-    if target.exists():
-        shutil.rmtree(target)
-    target.mkdir()
-    torch.save(trainer.state_dict(), target / STATE_FILE)
-    return target
+    publish_text(ckpt_dir / "format_version", str(FORMAT_VERSION))
+
+    def write(tmp):
+        tmp.mkdir()
+        torch.save(trainer.state_dict(), tmp / STATE_FILE)
+
+    return publish(ckpt_dir / str(step), write)
 
 
 def latest_step(ckpt_dir) -> Optional[int]:

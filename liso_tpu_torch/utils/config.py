@@ -28,6 +28,8 @@ from typing import Any, Optional, Sequence
 
 import yaml
 
+from liso_tpu_torch.utils.atomic import publish_text
+
 
 class Config(dict):
     """dict with attribute access, recursive over nested mappings."""
@@ -164,8 +166,8 @@ def config_to_yaml(cfg: Config) -> str:
 
 def save_config(cfg: Config, path):
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "w") as f:
-        f.write(config_to_yaml(cfg))
+    # whole or not at all: a resume's config check reads it
+    publish_text(path, config_to_yaml(cfg))
 
 
 def get_config_hash(cfg: Config) -> str:

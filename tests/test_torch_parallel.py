@@ -300,7 +300,7 @@ def test_helpers(runs):
         assert h["sum"] == 3.0 and h["sum_grad"] == 3.0
 
 
-def test_other_trainers_refuse_a_group(runs):
+def test_other_trainers_take_a_group(runs):
     """TransFusion, PointPillars and PointRCNN once refused a group; they
     now take it, every BatchNorm of their models with it. Their sharded
     steps are held by tests/test_torch_parallel_detectors.py."""

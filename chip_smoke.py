@@ -1694,9 +1694,9 @@ def phase_slim_experiment(kernels):
                  f"{latest_step(log_dir / 'ckpts')}, expected {E_STEPS}")
         if not all(bool(torch.isfinite(p).all()) for p in trainer.params.values()):
             fail("experiment parameters not finite after the run")
-        timings = exp.step_timings
-        step_ms = [t["step_s"] * 1e3 for t in timings]
-        wait_ms = [t["data_wait_s"] * 1e3 for t in timings]
+        wait_ms = span_tail_ms(("slim.wait",), E_STEPS)
+        step_ms = [s - w for s, w in
+                   zip(span_tail_ms(("slim.step",), E_STEPS), wait_ms)]
 
         # 2. checkpoint: save and restore times and bytes; a fresh
         # experiment from another seed restores the run's state bitwise
@@ -2559,6 +2559,35 @@ def phase_eval(kernels, handoff):
     return kres, res
 
 
+def span_tail_ms(names, n: int) -> list:
+    """The last `n` untraced durations (ms) of the spans `names`
+    (`liso_tpu_torch/utils/trace.py`'s rings), summed step by step. Each
+    span is opened once a step, so the rings' tails are the same steps."""
+    from liso_tpu_torch.utils import trace
+
+    tails = []
+    for name in names:
+        st = trace.stats(name)
+        ring = st["ring_ms"] if st else []
+        if len(ring) < n:
+            fail(f"span {name}: {len(ring)} untraced calls kept, expected {n}")
+        tails.append(ring[-n:])
+    return [sum(v) for v in zip(*tails)]
+
+
+def loop_step_ms(n: int) -> list:
+    """The rounds loop's last `n` steps from their spans: the loader's wait
+    (`det.wait`), the paste and copy (`det.paste`, `det.h2d`), and the
+    train step to its loss read back (`det.loss`, `det.backward`,
+    `det.optimizer`, `det.readback`)."""
+    wait = span_tail_ms(("det.wait",), n)
+    prep = span_tail_ms(("det.paste", "det.h2d"), n)
+    train = span_tail_ms(("det.loss", "det.backward", "det.optimizer",
+                          "det.readback"), n)
+    return [{"wait_ms": w, "prepare_ms": p, "train_step_ms": t}
+            for w, p, t in zip(wait, prep, train)]
+
+
 class RoundsRecorder:
     """Wraps what liso_cli's rounds loop calls (LisoSelfTraining.run, mine,
     _prepare_batch, _init_detector, validate, save; liso_loop.run_val;
@@ -2813,10 +2842,8 @@ def phase_rounds(kernels):
                "rounds": [{**r, "mined_db_run_val_s": v["seconds"]} for r, v in
                           zip(rec.rounds, [v for v in rec.run_vals
                                            if not v["validate"]])],
-               "steps": [{"step": t["step"], "wait_ms": t["wait_s"] * 1e3,
-                          "prepare_ms": t["prepare_s"] * 1e3,
-                          "train_step_ms": t["step_s"] * 1e3, "loss": t["loss"]}
-                         for t in loop.step_timings],
+               "steps": [{"step": i, **row, "loss": loss} for i, (row, loss)
+                         in enumerate(zip(loop_step_ms(R_STEPS), losses))],
                "validate_s": [v["seconds"] for v in rec.validates],
                "save_ms": [s["ms"] for s in rec.saves]}
         if mined != want_mined or resets != [2]:
@@ -2873,7 +2900,7 @@ def phase_rounds(kernels):
         for check, s in ((check_scatter_max, 17), (check_scatter_max_vjp, 18)):
             check(torch.Generator(device="cuda").manual_seed(s), cells,
                   bev.num_cells, 64, torch.float32, timed=False)
-        step_ms = [t["step_s"] * 1e3 for t in loop.step_timings]
+        step_ms = [r["train_step_ms"] for r in res["steps"]]
         res["run_batch_points_in_grid"] = int((cells < bev.num_cells).sum())
         res["profiled_step"] = {
             "launches": counts, "device_ms": dev_ms,
@@ -3178,10 +3205,8 @@ def phase_detectors(kernels):
             "rounds": [{**r, "mined_db_run_val_s": v["seconds"]} for r, v in
                        zip(rec.rounds, [v for v in rec.run_vals
                                         if not v["validate"]])],
-            "steps": [{"step": t["step"], "prepare_ms": t["prepare_s"] * 1e3,
-                       "wait_ms": t["wait_s"] * 1e3,
-                       "train_step_ms": t["step_s"] * 1e3, "loss": t["loss"]}
-                      for t in loop.step_timings],
+            "steps": [{"step": i, **row, "loss": loss} for i, (row, loss)
+                      in enumerate(zip(loop_step_ms(DT_TOTAL), cli_losses))],
             "validate_s": [v["seconds"] for v in rec.validates],
             "save_ms": [x["ms"] for x in rec.saves]}
         stages = res["liso_cli"]
@@ -3189,9 +3214,9 @@ def phase_detectors(kernels):
             "mining": sum(x["seconds"] for x in rec.rounds),
             "mined_db_run_val": sum(x["mined_db_run_val_s"] for x in stages["rounds"]),
             "validate": sum(stages["validate_s"]),
-            "train_steps": sum(t["step_s"] for t in loop.step_timings),
-            "prepare_batch": sum(t["prepare_s"] for t in loop.step_timings),
-            "loader_wait": sum(t["wait_s"] for t in loop.step_timings),
+            "train_steps": sum(r["train_step_ms"] for r in stages["steps"]) / 1e3,
+            "prepare_batch": sum(r["prepare_ms"] for r in stages["steps"]) / 1e3,
+            "loader_wait": sum(r["wait_ms"] for r in stages["steps"]) / 1e3,
             "save": sum(stages["save_ms"]) / 1e3}
         if cli_launches != expect:
             fail(f"liso_cli transfusion launches {cli_launches}, expected {expect}")
@@ -3308,29 +3333,35 @@ def p_first_step(trainer, batch, slim: bool) -> dict:
 def p_timed_steps(trainer, batch, slim: bool, kernels, warmup=P_WARMUP,
                   steps=P_STEPS) -> dict:
     """warmup - 1 more warm-up steps (the first step was the first), then
-    `steps` timed steps, each awaited, with the launch counts and the
-    collectives' host time reset just before and read just after."""
+    `steps` timed steps, each awaited, with the launch counts reset just
+    before and read just after, and the collectives' host time (the
+    `mesh.collective` span) read before and after."""
     import torch
 
-    from liso_tpu_torch.parallel import mesh
+    from liso_tpu_torch.utils import trace
+
+    def collectives():
+        st = trace.stats("mesh.collective")
+        return (st["calls"], st["total_ms"]) if st else (0, 0.0)
 
     for _ in range(warmup - 1):
         p_step(trainer, batch, slim)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    mesh.reset_collective_stats()
+    calls0, ms0 = collectives()
     ms = []
     for _ in range(steps):
         t0 = time.perf_counter()
         p_step(trainer, batch, slim)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+    calls1, ms1 = collectives()
     return {"step_ms_median": statistics.median(ms), "step_ms_max": max(ms),
             "step_ms": ms, "launches": dict(kernels.launches),
-            "collectives": dict(mesh.collective_stats),
-            "collective_ms_per_step": mesh.collective_stats["seconds"] * 1e3
-            / steps,
+            "collectives": {"calls": calls1 - calls0,
+                            "seconds": (ms1 - ms0) / 1e3},
+            "collective_ms_per_step": (ms1 - ms0) / steps,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 

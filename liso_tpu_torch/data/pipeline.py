@@ -14,6 +14,12 @@ iterating) enqueues the copy to the card with `non_blocking=True` on its
 own current stream, so the kernels it launches next are ordered after the
 copy. Without `device` the batches stay numpy, as the JAX pipeline gives
 them without `device_put`.
+
+Spans and counters (`utils/trace.py`): the consumer's `data.wait` around
+each take from the queue, `data.batches` for each batch taken and
+`data.queue_empty` for each found missing when asked for (0 or 1 a batch);
+the producer's `data.produce` around each batch's assembly (worker map,
+collate, pin).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from liso_tpu_torch.data.dataset import LidarDataset, collate
+from liso_tpu_torch.utils import trace
 
 _WORKER_DS: Optional[LidarDataset] = None
 
@@ -133,13 +140,15 @@ class Prefetcher:
                     if stop.is_set():
                         return
                     chunk = idx[b * bs: (b + 1) * bs]
-                    if self.use_processes:
-                        samples = list(self.pool.map(
-                            partial(_worker_get, epoch=epoch), chunk))
-                    else:
-                        samples = list(
-                            self.pool.map(self.dataset.__getitem__, chunk))
-                    q.put(self._host_batch(collate(samples)))
+                    with trace.span("data.produce"):
+                        if self.use_processes:
+                            samples = list(self.pool.map(
+                                partial(_worker_get, epoch=epoch), chunk))
+                        else:
+                            samples = list(
+                                self.pool.map(self.dataset.__getitem__, chunk))
+                        batch = self._host_batch(collate(samples))
+                    q.put(batch)
                 q.put(None)
             except BaseException as e:  # handed to the consumer
                 q.put(_Failure(e))
@@ -148,11 +157,17 @@ class Prefetcher:
         t.start()
         try:
             while True:
-                item = q.get()
+                empty = q.empty()
+                with trace.span("data.wait"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, _Failure):
                     raise item.exc
+                # counted at every batch, 0 or 1, so the two counters'
+                # rings hold the same recent batches
+                trace.count("data.batches")
+                trace.count("data.queue_empty", empty)
                 if self.device is not None:
                     item = _map_arrays(item, lambda x: x.to(
                         self.device, non_blocking=True))

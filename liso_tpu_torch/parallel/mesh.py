@@ -39,20 +39,11 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from liso_tpu_torch.utils import trace
+
 BACKENDS = ("gloo", "nccl")
 # how long a collective waits for the other ranks before it raises
 GROUP_TIMEOUT_S = 600.0
-
-# host seconds spent in the collectives of this process and their count;
-# `reset_collective_stats` zeroes them (chip_smoke.py reads them around a
-# step)
-collective_stats = {"calls": 0, "seconds": 0.0}
-
-
-def reset_collective_stats() -> None:
-    collective_stats["calls"] = 0
-    collective_stats["seconds"] = 0.0
-
 
 def make_mesh(world_size: int, rank: int, backend: str,
               store_dir) -> dist.ProcessGroup:
@@ -79,30 +70,27 @@ def destroy_mesh() -> None:
 
 
 def _all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum `t` in place over the group's ranks."""
-    t0 = time.perf_counter()
-    if t.is_cuda and dist.get_backend(group) == "gloo":
-        host = t.cpu()
-        dist.all_reduce(host, group=group)
-        t.copy_(host)
-    else:
-        dist.all_reduce(t, group=group)
-    collective_stats["calls"] += 1
-    collective_stats["seconds"] += time.perf_counter() - t0
+    """Sum `t` in place over the group's ranks (a `mesh.collective` span)."""
+    with trace.span("mesh.collective"):
+        if t.is_cuda and dist.get_backend(group) == "gloo":
+            host = t.cpu()
+            dist.all_reduce(host, group=group)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, group=group)
     return t
 
 
 def _broadcast_(t: torch.Tensor, group) -> None:
-    """Rank 0's `t` into every rank's `t`, in place."""
-    t0 = time.perf_counter()
-    if t.is_cuda and dist.get_backend(group) == "gloo":
-        host = t.cpu()
-        dist.broadcast(host, src=0, group=group)
-        t.copy_(host)
-    else:
-        dist.broadcast(t, src=0, group=group)
-    collective_stats["calls"] += 1
-    collective_stats["seconds"] += time.perf_counter() - t0
+    """Rank 0's `t` into every rank's `t`, in place (a `mesh.collective`
+    span)."""
+    with trace.span("mesh.collective"):
+        if t.is_cuda and dist.get_backend(group) == "gloo":
+            host = t.cpu()
+            dist.broadcast(host, src=0, group=group)
+            t.copy_(host)
+        else:
+            dist.broadcast(t, src=0, group=group)
 
 
 class _BatchSum(torch.autograd.Function):

@@ -20,6 +20,7 @@ from liso_tpu_torch.models.pillar_encoder import (
 )
 from liso_tpu_torch.models.slim import SlimModel
 from liso_tpu_torch.ops.bev import BevSetup
+from liso_tpu_torch.utils import trace
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,15 +77,22 @@ def fused_streaming(slim: SlimModel, det: BoxLearner, fmap_prev, cn_prev,
     """One streaming step: encode the new frame once, flow from the cached
     previous-frame features, detect on the new frame. The pillar prep is
     computed once for both networks and both networks' point features are
-    scattered by ONE kernel launch. Returns (fmap, cn, flow, pos, probs)."""
-    prepared = prepare_pillar_inputs(pts, valid, slim.bev)
-    x_slim, _ = slim.pillar_point_feats(pts, valid, prepared=prepared)
-    x_det, _ = det.point_feats(pts, valid, prepared=prepared)
-    (img_s, img_d), occ = fused_scatter_images(
-        [x_slim, x_det], prepared, slim.bev, dtype=slim.compute_dtype,
-        plain=plain,
-    )
-    fmap, cn, _ = slim.encode_frame(pts, valid, pillar_image=(img_s, occ))
-    out = slim.flow_from_features(fmap_prev, cn_prev, fmap, plain=plain)
-    boxes, _, _, _ = det(pts, valid, pillar_image=(img_d, occ), plain=plain)
+    scattered by ONE kernel launch. Returns (fmap, cn, flow, pos, probs).
+    Its four stages are spans (`utils/trace.py`): `stream.pillars`,
+    `stream.encode`, `stream.flow` and `stream.detect`."""
+    with trace.span("stream.pillars"):
+        prepared = prepare_pillar_inputs(pts, valid, slim.bev)
+        x_slim, _ = slim.pillar_point_feats(pts, valid, prepared=prepared)
+        x_det, _ = det.point_feats(pts, valid, prepared=prepared)
+        (img_s, img_d), occ = fused_scatter_images(
+            [x_slim, x_det], prepared, slim.bev, dtype=slim.compute_dtype,
+            plain=plain,
+        )
+    with trace.span("stream.encode"):
+        fmap, cn, _ = slim.encode_frame(pts, valid, pillar_image=(img_s, occ))
+    with trace.span("stream.flow"):
+        out = slim.flow_from_features(fmap_prev, cn_prev, fmap, plain=plain)
+    with trace.span("stream.detect"):
+        boxes, _, _, _ = det(pts, valid, pillar_image=(img_d, occ),
+                             plain=plain)
     return fmap, cn, out[-1][..., 4:6], boxes.pos, boxes.probs

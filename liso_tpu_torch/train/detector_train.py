@@ -55,6 +55,7 @@ from liso_tpu_torch.train.slim_train import (
     fp32_precision,
     global_norm,
 )
+from liso_tpu_torch.utils import trace
 from liso_tpu_torch.utils.schedules import onecycle
 
 
@@ -115,32 +116,46 @@ class AdamWTrainState:
         self.count = 0
         self.step = 0
 
+    # whether the metrics hold the gradient's global norm, as the JAX
+    # train step of this class of detector gives it
+    grad_norm_metric = False
+
     def _update(self, losses: dict, total: torch.Tensor):
         """Backward of `total` and one AdamW step in place. Returns the JAX
         train step's metrics, `loss/<term>` for each of `losses` (0-dim
-        tensors) and `lr` (the schedule at this step), and the gradients."""
+        tensors), `lr` (the schedule at this step) and, where
+        `grad_norm_metric`, `grad_norm`. Spans (`utils/trace.py`):
+        `det.backward` (the gradients cleared, then the backward; with a
+        group, the gradient's sum included) and `det.optimizer` (the
+        schedule's rate, AdamW, the norm)."""
         params = list(self.params.values())
-        for p in params:
-            p.grad = None
-        total.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        if self.group is not None:
-            grads = all_sum_(grads, self.group)
-            losses = total_metrics(losses, self.group)
-        lr = float(self.lr_schedule(self.count))
-        adamw_update_(params, grads, list(self.mu.values()),
-                      list(self.nu.values()), self.count, lr,
-                      self.weight_decay)
-        metrics = {f"loss/{k}": v.detach() for k, v in losses.items()}
-        metrics["lr"] = self.lr_schedule(self.step)
+        with trace.span("det.backward"):
+            for p in params:
+                p.grad = None
+            total.backward()
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            if self.group is not None:
+                grads = all_sum_(grads, self.group)
+                losses = total_metrics(losses, self.group)
+        with trace.span("det.optimizer"):
+            lr = float(self.lr_schedule(self.count))
+            adamw_update_(params, grads, list(self.mu.values()),
+                          list(self.nu.values()), self.count, lr,
+                          self.weight_decay)
+            metrics = {f"loss/{k}": v.detach() for k, v in losses.items()}
+            metrics["lr"] = self.lr_schedule(self.step)
+            if self.grad_norm_metric:
+                metrics["grad_norm"] = global_norm(grads)
         self.count += 1
         self.step += 1
-        return metrics, grads
+        return metrics
 
 
 class DetectorTrainer(AdamWTrainState):
     """Model, train state and the detector's train / predict steps."""
+
+    grad_norm_metric = True
 
     def __init__(
         self,
@@ -226,11 +241,12 @@ class DetectorTrainer(AdamWTrainState):
         """One step in place. Returns the JAX train step's metrics (0-dim
         tensors): `loss/<term>` for each loss term and the total (centerpoint:
         probs, rot, dims, pos; transfusion: heatmap and hungarian_*), `lr`
-        (the schedule at this step) and `grad_norm`."""
-        losses = self._loss(points, valid, target_boxes, ignore_mask, plain)
-        metrics, grads = self._update(losses, losses["total"])
-        metrics["grad_norm"] = global_norm(grads)
-        return metrics
+        (the schedule at this step) and `grad_norm`. Spans: `det.loss`
+        (the forward and the loss terms), then `_update`'s."""
+        with trace.span("det.loss"):
+            losses = self._loss(points, valid, target_boxes, ignore_mask,
+                                plain)
+        return self._update(losses, losses["total"])
 
     @torch.no_grad()
     @fp32_precision()

@@ -62,6 +62,7 @@ from liso_tpu_torch.tracker.mining import (
 from liso_tpu_torch.train.detector_train import DetectorTrainer
 from liso_tpu_torch.train.pointpillars_train import PointPillarsTrainer
 from liso_tpu_torch.train.pointrcnn_train import PointRCNNTrainer
+from liso_tpu_torch.utils import trace
 from liso_tpu_torch.utils.atomic import publish_text
 from liso_tpu_torch.utils.checkpoint import (
     check_checkpoint_config_sanity,
@@ -248,6 +249,11 @@ def make_trainer(cfg, bev, *, group=None, device=None):
     )
 
 
+def _last_s(*names: str) -> float:
+    """The seconds of the spans' last calls, summed."""
+    return sum(trace.stats(n)["last_ms"] for n in names) * 1e-3
+
+
 class LisoSelfTraining:
     def __init__(
         self,
@@ -320,10 +326,6 @@ class LisoSelfTraining:
             use_raydrop_augm=bool(boxes.use_raydrop_augm),
             max_scale_delta=float(boxes.max_scale_delta),
         )
-        # per train step of `run`: seconds waiting on the loader, in
-        # _prepare_batch (paste and copy) and in the step to its loss on the
-        # host, and the loss
-        self.step_timings: List[dict] = []
 
     def _make_trainer(self, group=None):
         """The trainer of `network.name` (make_trainer); the loop's own
@@ -655,7 +657,33 @@ class LisoSelfTraining:
         DB, stacked once per round, are pasted into each cloud and written
         into the free target slots. Then one move to the trainer's device,
         through pinned host memory on cuda. Returns (points, valid, target
-        Boxes)."""
+        Boxes). Spans (`utils/trace.py`): `det.paste` to the padded, pasted
+        arrays and targets, `det.h2d` for the copies to the device; counters
+        `det.boxes_pasted` and `det.points_pasted` (the points that land in
+        the padded clouds)."""
+        with trace.span("det.paste"):
+            pcl, valid, targets = self._paste(batch)
+        dev = self.device
+        pin = dev.type == "cuda"
+
+        def put(a):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return (t.pin_memory() if pin else t).to(dev, non_blocking=True)
+
+        with trace.span("det.h2d"):
+            boxes = Boxes(
+                pos=put(targets["pos"]),
+                dims=put(targets["dims"]),
+                rot=put(targets["rot"]),
+                probs=put(targets["probs"]),
+                velo=put(targets["velo"]) if "velo" in targets else None,
+                valid=put(targets["valid"]),
+            ).with_defaults()
+            return put(pcl), put(valid), boxes
+
+    def _paste(self, batch: dict):
+        """`_prepare_batch`'s host part: (points, valid, target arrays) of
+        the batch with the augmentation DB's boxes pasted in."""
         pcl = np.array(batch["pcl_t0"])
         valid = np.array(batch["valid_t0"])
         targets = {k: np.array(v) for k, v in batch["target_boxes"].items()}
@@ -681,6 +709,9 @@ class LisoSelfTraining:
                 )
                 p_padded, v_padded = pad_to(new_pcl, n_max)
                 pcl[i], valid[i] = p_padded, v_padded
+                trace.count("det.boxes_pasted", len(pasted["pos"]))
+                trace.count("det.points_pasted",
+                            min(len(new_pcl), n_max) - len(base))
                 if len(pasted["pos"]):
                     k_slots = targets["pos"].shape[1]
                     kv = int(targets["valid"][i].sum())
@@ -689,22 +720,7 @@ class LisoSelfTraining:
                         if key in targets:
                             targets[key][i, kv : kv + n_add] = pasted[key][:n_add]
                     targets["valid"][i, kv : kv + n_add] = True
-        dev = self.device
-        pin = dev.type == "cuda"
-
-        def put(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            return (t.pin_memory() if pin else t).to(dev, non_blocking=True)
-
-        boxes = Boxes(
-            pos=put(targets["pos"]),
-            dims=put(targets["dims"]),
-            rot=put(targets["rot"]),
-            probs=put(targets["probs"]),
-            velo=put(targets["velo"]) if "velo" in targets else None,
-            valid=put(targets["valid"]),
-        ).with_defaults()
-        return put(pcl), put(valid), boxes
+        return pcl, valid, targets
 
     def _init_detector(self, seed: int) -> None:
         """A fresh detector, at the first step and after each weight reset:
@@ -801,38 +817,44 @@ class LisoSelfTraining:
                         self.state = None
                     self.round_idx += 1
 
-                t_wait0 = time.perf_counter()
-                try:
-                    batch = next(train_iter)
-                except StopIteration:
-                    train_iter = iter(loader)
-                    batch = next(train_iter)
-                t_prep0 = time.perf_counter()
-                pts, valid, target = self._prepare_batch(batch)
-                t_prep1 = time.perf_counter()
-                if self.state is None:
-                    # the seed is taken after round_idx moved on, as in JAX
-                    self._init_detector(int(self.cfg.seed) + self.round_idx)
-                t_fwd0 = time.perf_counter()
-                # replicas must stay bitwise equal (the replica check): the
-                # cuDNN backward's fastest algorithms sum in no fixed order
-                with cudnn_deterministic(self.world_size > 1):
-                    metrics = self.state.train_step(pts, valid, target)
-                loss = float(metrics["loss/total"])  # waits for the step
-                t_end = time.perf_counter()
+                with trace.span("det.step", step=step):
+                    with trace.span("det.wait") as wait:
+                        try:
+                            batch = next(train_iter)
+                        except StopIteration:
+                            train_iter = iter(loader)
+                            batch = next(train_iter)
+                    pts, valid, target = self._prepare_batch(batch)
+                    if self.state is None:
+                        # the seed is taken after round_idx moved on, as in
+                        # JAX
+                        self._init_detector(int(self.cfg.seed) + self.round_idx)
+                    # replicas must stay bitwise equal (the replica check):
+                    # the cuDNN backward's fastest algorithms sum in no
+                    # fixed order
+                    with cudnn_deterministic(self.world_size > 1):
+                        metrics = self.state.train_step(pts, valid, target)
+                    with trace.span("det.readback"):
+                        loss = float(metrics["loss/total"])  # waits for the step
                 metrics_hist.append(loss)
-                self.step_timings.append({
-                    "step": step, "wait_s": t_prep0 - t_wait0,
-                    "prepare_s": t_prep1 - t_prep0, "step_s": t_end - t_fwd0,
-                    "loss": loss})
                 self.tb.global_step = step
                 if step % int(self.cfg.logging.log_interval) == 0:
                     self.tb("train", "loss/").add_scalars(
                         {k: float(v) for k, v in metrics.items()}, step)
-                    # per-step wall-clock timers (liso_cli.py:621-633)
+                    # per-step wall-clock timers (liso_cli.py:621-633), from
+                    # this step's spans: the loader's wait and the paste and
+                    # copy; the train step to its loss on the host
                     wt = self.tb("train", "timing/")
-                    wt.add_scalar("dataloading_s", t_prep1 - t_wait0, step)
-                    wt.add_scalar("fwd_bwd_s", t_end - t_fwd0, step)
+                    wt.add_scalar("dataloading_s", wait.seconds + _last_s(
+                        "det.paste", "det.h2d"), step)
+                    wt.add_scalar("fwd_bwd_s", _last_s(
+                        "det.loss", "det.backward", "det.optimizer",
+                        "det.readback"), step)
+                    # the paste's work so far, against `det.paste`'s total
+                    self.tb("train", "augm/").add_scalars(
+                        {"boxes_pasted": trace.counter("det.boxes_pasted"),
+                         "points_pasted": trace.counter("det.points_pasted")},
+                        step)
 
                 # replicas train in lock-step, so only worker 0 validates
                 # and saves

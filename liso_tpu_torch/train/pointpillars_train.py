@@ -28,6 +28,7 @@ from liso_tpu_torch.parallel.mesh import batch_mean
 from liso_tpu_torch.serve import resolve_device
 from liso_tpu_torch.train.detector_train import AdamWTrainState
 from liso_tpu_torch.train.slim_train import fp32_precision
+from liso_tpu_torch.utils import trace
 
 
 class PointPillarsTrainer(AdamWTrainState):
@@ -74,17 +75,18 @@ class PointPillarsTrainer(AdamWTrainState):
                    target: Boxes, plain: bool = False) -> dict:
         """One step in place. Returns `loss/<term>` for cls, reg, dir (each
         the batch mean of the per-sample loss) and total, and `lr`."""
-        self.model.train()
-        cls, reg, direction, _ = self.model(points, valid, plain=plain)
-        b, h, w, a = cls.shape
-        per_sample = pointpillars_loss(
-            cls.reshape(b, -1), reg.reshape(b, -1, 7),
-            direction.reshape(b, -1, 2), self.anchors_flat((h, w)), target,
-            self.anchor_cfg)
-        losses = {k: batch_mean(v, self.group) for k, v in per_sample.items()}
-        total = sum(losses.values())
-        metrics, _ = self._update({**losses, "total": total}, total)
-        return metrics
+        with trace.span("det.loss"):
+            self.model.train()
+            cls, reg, direction, _ = self.model(points, valid, plain=plain)
+            b, h, w, a = cls.shape
+            per_sample = pointpillars_loss(
+                cls.reshape(b, -1), reg.reshape(b, -1, 7),
+                direction.reshape(b, -1, 2), self.anchors_flat((h, w)),
+                target, self.anchor_cfg)
+            losses = {k: batch_mean(v, self.group)
+                      for k, v in per_sample.items()}
+            total = sum(losses.values())
+        return self._update({**losses, "total": total}, total)
 
     @torch.no_grad()
     @fp32_precision()

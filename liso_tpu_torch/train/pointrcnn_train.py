@@ -25,6 +25,7 @@ from liso_tpu_torch.ops.nms import batched_nms
 from liso_tpu_torch.serve import resolve_device
 from liso_tpu_torch.train.detector_train import AdamWTrainState
 from liso_tpu_torch.train.slim_train import fp32_precision
+from liso_tpu_torch.utils import trace
 
 
 class PointRCNNTrainer(AdamWTrainState):
@@ -57,12 +58,12 @@ class PointRCNNTrainer(AdamWTrainState):
                    target: Boxes, plain: bool = False) -> dict:
         """One step in place. Returns `loss/<term>` for seg, the two
         stages' Hungarian terms, rescore and total, and `lr`."""
-        self.model.train()
-        out = self.model(points, valid, plain=plain)
-        total, losses = pointrcnn_loss(out, points, valid, target,
-                                       self.group)
-        metrics, _ = self._update({**losses, "total": total}, total)
-        return metrics
+        with trace.span("det.loss"):
+            self.model.train()
+            out = self.model(points, valid, plain=plain)
+            total, losses = pointrcnn_loss(out, points, valid, target,
+                                           self.group)
+        return self._update({**losses, "total": total}, total)
 
     @torch.no_grad()
     @fp32_precision()

@@ -15,7 +15,6 @@ built from a batch.
 """
 from __future__ import annotations
 
-import time
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -31,6 +30,7 @@ from liso_tpu_torch.models.slim import movavg_value
 from liso_tpu_torch.ops.bev import BevSetup, point_cell_ids
 from liso_tpu_torch.ops.scatter import scatter_mean_grid
 from liso_tpu_torch.train.slim_train import SlimTrainer
+from liso_tpu_torch.utils import trace
 from liso_tpu_torch.utils.atomic import publish
 from liso_tpu_torch.utils.checkpoint import (
     check_checkpoint_config_sanity,
@@ -196,9 +196,6 @@ class SlimExperiment:
         self.trainer = slim_trainer_from_cfg(cfg, bev, len(train_dataset),
                                              device=device)
         self._started = False
-        # per train step of `run`: seconds waiting on the input queue, and
-        # seconds of the step itself (to its metrics on the host)
-        self.step_timings = []
 
     def maybe_restore(self, ckpt_path=None):
         """Load the latest checkpoint of `ckpt_path` (default: the log
@@ -238,26 +235,26 @@ class SlimExperiment:
         it = iter(loader)
         try:
             while step < total:
-                t_wait = time.perf_counter()
-                try:
-                    batch = next(it)
-                except StopIteration:
-                    it = iter(loader)
-                    batch = next(it)
-                t0 = time.perf_counter()
-                metrics = self.trainer.train_step(
-                    batch_to_flow_sample(batch, self.trainer.device))
-                # one host transfer for every metric of the step
-                values = torch.stack(
-                    [v.float() for v in metrics.values()]).tolist()
-                step_s = time.perf_counter() - t0
-                self.step_timings.append(
-                    {"data_wait_s": t0 - t_wait, "step_s": step_s})
+                with trace.span("slim.step", step=step) as step_span:
+                    with trace.span("slim.wait") as wait:
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            it = iter(loader)
+                            batch = next(it)
+                    metrics = self.trainer.train_step(
+                        batch_to_flow_sample(batch, self.trainer.device))
+                    # one host transfer for every metric of the step
+                    values = torch.stack(
+                        [v.float() for v in metrics.values()]).tolist()
+                # the loader's wait, and the rest of the step to its
+                # metrics on the host
+                wait_s = wait.seconds
                 self.tb.global_step = step
                 w = self.tb("train", "metrics/")
                 w.add_scalars(dict(zip(metrics, values)), step)
-                w.add_scalar("timing/step_s", step_s, step)
-                w.add_scalar("timing/data_wait_s", t0 - t_wait, step)
+                w.add_scalar("timing/step_s", step_span.seconds - wait_s, step)
+                w.add_scalar("timing/data_wait_s", wait_s, step)
                 if eval_every and step > 0 and step % eval_every == 0:
                     self.evaluate(step)
                 if save_every and step > 0 and step % save_every == 0:

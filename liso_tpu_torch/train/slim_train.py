@@ -45,6 +45,7 @@ from liso_tpu_torch.models.slim_decoder import DecoderCfg, decode
 from liso_tpu_torch.ops.bev import BevSetup, point_cell_ids, voxel_center_coords
 from liso_tpu_torch.parallel.mesh import all_sum_, replicate, total_metrics
 from liso_tpu_torch.serve import resolve_device
+from liso_tpu_torch.utils import trace
 from liso_tpu_torch.utils.schedules import polynomial_decay_with_warmup
 
 # optax.rmsprop's defaults: nu starts at 0, eps inside the square root
@@ -318,28 +319,35 @@ class SlimTrainer:
         tensors): the last iteration's loss terms, `loss`, `grad_norm` (of
         the gradient before clipping) and `lr` (the schedule at this step;
         0 at step 0). With a group: the global batch's values on every
-        rank."""
+        rank. Spans (`utils/trace.py`): `slim.loss_and_grads` (with a group,
+        the sums over it included) and `slim.optimizer` (the norm, the clip,
+        the rate and the update)."""
         with fp32_precision():
             params = list(self.params.values())
-            loss, movavg, metrics, grads = self._loss_and_grads(
-                params, batch, plain)
-            if self.group is not None:
-                grads = all_sum_(grads, self.group)
-                metrics = total_metrics({**metrics, "loss": loss}, self.group)
-                loss = metrics.pop("loss")
-            g_norm = global_norm(grads)
-            if self.detect_anomaly and not bool(
-                    torch.isfinite(torch.stack([loss.detach(), g_norm])).all()):
-                self._raise_anomaly(params, batch, plain, loss, g_norm)
-            if self.grad_clip_norm > 0:
-                grads = clip_by_global_norm(grads, g_norm, self.grad_clip_norm)
-            lr = self.lr_schedule(self.step).to(self.device)
-            if self.optimizer == "adam":
-                adamw_update_(params, grads, list(self.mu.values()),
-                              list(self.nu.values()), self.count, lr, 0.0)
-                self.count += 1
-            else:
-                rmsprop_update_(params, grads, list(self.nu.values()), lr)
+            with trace.span("slim.loss_and_grads"):
+                loss, movavg, metrics, grads = self._loss_and_grads(
+                    params, batch, plain)
+                if self.group is not None:
+                    grads = all_sum_(grads, self.group)
+                    metrics = total_metrics({**metrics, "loss": loss},
+                                            self.group)
+                    loss = metrics.pop("loss")
+            with trace.span("slim.optimizer"):
+                g_norm = global_norm(grads)
+                if self.detect_anomaly and not bool(
+                        torch.isfinite(torch.stack([loss.detach(),
+                                                    g_norm])).all()):
+                    self._raise_anomaly(params, batch, plain, loss, g_norm)
+                if self.grad_clip_norm > 0:
+                    grads = clip_by_global_norm(grads, g_norm,
+                                                self.grad_clip_norm)
+                lr = self.lr_schedule(self.step).to(self.device)
+                if self.optimizer == "adam":
+                    adamw_update_(params, grads, list(self.mu.values()),
+                                  list(self.nu.values()), self.count, lr, 0.0)
+                    self.count += 1
+                else:
+                    rmsprop_update_(params, grads, list(self.nu.values()), lr)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         metrics["grad_norm"] = g_norm

@@ -45,7 +45,6 @@ from liso_tpu_torch.eval import run_val as trv
 from liso_tpu_torch.eval import waymo_metrics as twm
 from liso_tpu_torch.ops.bev import BevSetup
 from liso_tpu_torch.utils import misc as tmisc
-from liso_tpu_torch.utils import timing as ttiming
 
 torch.set_num_threads(1)
 METRIC_ATOL = 1e-6
@@ -383,15 +382,3 @@ def test_cloud_loader_saver_and_timing(tmp_path):
     x = np.arange(12, dtype=np.float32).reshape(3, 4)
     io.save_sample(tmp_path / "a" / "x.npy", x)
     np.testing.assert_array_equal(io.load_sample(tmp_path / "a" / "x.npy"), x)
-    t = ttiming.StepTimer()
-    with t.section("fwd"):
-        sum(range(100))
-    out = t.pop()
-    assert set(out) == {"timing/fwd_s"} and out["timing/fwd_s"] >= 0
-    assert t.pop() == {}
-
-    @ttiming.timeit
-    def f():
-        return 42
-
-    assert f() == 42 and ttiming.timeit.calls[f.__qualname__] == 1

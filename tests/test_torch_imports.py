@@ -62,7 +62,7 @@ def test_package_imports_with_jax_blocked():
         "import liso_tpu_torch.eval.waymo_metrics\n"
         "import liso_tpu_torch.eval.nuscenes_wrapper\n"
         "import liso_tpu_torch.eval.run_val, liso_tpu_torch.cli.eval_cli\n"
-        "import liso_tpu_torch.utils.misc, liso_tpu_torch.utils.timing\n"
+        "import liso_tpu_torch.utils.misc, liso_tpu_torch.utils.trace\n"
         "import liso_tpu_torch.data.augmentation\n"
         "import liso_tpu_torch.cli.liso_cli, liso_tpu_torch.cli.mining_cli\n"
         "import liso_tpu_torch.train.pointpillars_train\n"

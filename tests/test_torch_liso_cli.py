@@ -18,10 +18,14 @@ import torch
 from liso_tpu_torch.cli import liso_cli, mining_cli
 from liso_tpu_torch.tracker.dbs import load_mined_boxes_db
 from liso_tpu_torch.train import liso_loop as tloop
+from liso_tpu_torch.utils import trace
 from liso_tpu_torch.utils.checkpoint import latest_step
 
 torch.set_num_threads(1)
 PRE_MAX_BOXES = 64
+# the spans each step of the rounds loop opens once
+LOOP_SPANS = ("det.step", "det.wait", "det.paste", "det.h2d", "det.loss",
+              "det.backward", "det.optimizer", "det.readback")
 CLI_KV = [["data", "img_grid_size", "[64, 64]"],
           ["data", "bev_range_m", "[40.0, 40.0]"]]
 
@@ -68,27 +72,33 @@ def fresh_run(tmp_path_factory):
         run = tloop.LisoSelfTraining.run
 
         def record(self, *a, **k):
+            calls = {n: (trace.stats(n) or {"calls": 0})["calls"]
+                     for n in LOOP_SPANS}
             out = run(self, *a, **k)
             seen["loop"] = self
+            seen["losses"] = out
+            seen["span_calls"] = {n: trace.stats(n)["calls"] - calls[n]
+                                  for n in LOOP_SPANS}
             return out
 
         mp.setattr(tloop.LisoSelfTraining, "run", record)
         log_dir = liso_cli.main(_argv(tmp))
     finally:
         mp.undo()
-    return log_dir, seen["loop"]
+    return log_dir, seen
 
 
 def test_liso_cli_fresh_run(fresh_run):
-    log_dir, loop = fresh_run
+    log_dir, seen = fresh_run
+    loop = seen["loop"]
     assert (log_dir / "config.yml").exists()
     assert _steps(log_dir / "ckpts") == [3, 6]
     for r in (0, 1):
         assert (log_dir / f"mined_round_{r}" / "tracked.npz").exists()
     assert not (log_dir / "mined_round_2").exists()
     assert loop.round_idx == 2 and loop.trainer.step == 6
-    assert len(loop.step_timings) == 6
-    assert all(np.isfinite(t["loss"]) for t in loop.step_timings)
+    assert seen["span_calls"] == {n: 6 for n in LOOP_SPANS}
+    assert len(seen["losses"]) == 6 and np.all(np.isfinite(seen["losses"]))
     # drop_net_weights_every_nth_round 2: round 1 keeps the weights
     assert loop.trainer.count == 6
     db0 = load_mined_boxes_db(log_dir / "mined_round_0" / "tracked.npz")
@@ -115,7 +125,8 @@ def test_liso_cli_resume(fresh_run, tmp_path, capsys):
 def test_liso_cli_finetune(fresh_run, tmp_path, monkeypatch, capsys):
     """--finetune keeps the weights only: the step and AdamW start at 0, the
     DBs are dropped, and the run mines from round 0 again."""
-    src, trained = fresh_run
+    src, fresh = fresh_run
+    trained = fresh["loop"]
     seen = {}
     run = tloop.LisoSelfTraining.run
 
@@ -199,13 +210,19 @@ def test_liso_cli_preset(preset, tmp_path, monkeypatch, capsys):
     network, kv, trainer_cls = PRESETS[preset]
     seen = {}
     validate = tloop.LisoSelfTraining.validate
+    run = tloop.LisoSelfTraining.run
 
     def record(self, step, *a, **k):
         seen["metrics"] = validate(self, step, *a, **k)
         seen["loop"] = self
         return seen["metrics"]
 
+    def record_run(self, *a, **k):
+        seen["losses"] = run(self, *a, **k)
+        return seen["losses"]
+
     monkeypatch.setattr(tloop.LisoSelfTraining, "validate", record)
+    monkeypatch.setattr(tloop.LisoSelfTraining, "run", record_run)
     extra = [a for pair in kv for a in ["-kv", *pair]]
     log_dir = liso_cli.main(_argv(tmp_path, *extra, network=network))
     out = capsys.readouterr().out
@@ -216,7 +233,7 @@ def test_liso_cli_preset(preset, tmp_path, monkeypatch, capsys):
                                   "step 3: mining round 1"]
     assert _steps(log_dir / "ckpts") == [3, 6]
     assert loop.trainer.step == 6
-    assert all(np.isfinite(t["loss"]) for t in loop.step_timings)
+    assert len(seen["losses"]) == 6 and np.all(np.isfinite(seen["losses"]))
     assert any(k.startswith("mAP") for k in seen["metrics"])
     if preset == "centerpoint_non_baseline":
         assert loop.trainer.model.model.out_downsample_factor == 8

@@ -41,7 +41,7 @@ from liso_tpu_torch.models.slim import movavg_value
 from liso_tpu_torch.ops.bev import BevSetup
 from liso_tpu_torch.train.slim_experiment import SlimExperiment
 from liso_tpu_torch.train.slim_train import SlimTrainer
-from liso_tpu_torch.utils import checkpoint
+from liso_tpu_torch.utils import checkpoint, trace
 from liso_tpu_torch.utils.config import parse_config, save_config
 from liso_tpu_torch.weights import load_slim_train_state
 from test_torch_modules import random_variables
@@ -49,6 +49,8 @@ from test_torch_modules import random_variables
 torch.set_num_threads(1)
 GRID, RANGE, N_MAX, ITERS = 64, 40.0, 2048, 2
 KV = [["SLIM", "model", "num_iters", str(ITERS)]]
+SLIM_SPANS = ("slim.step", "slim.wait", "slim.loss_and_grads",
+              "slim.optimizer")
 FLOW_ATOL = 2e-3  # m, the serving path's tolerance
 DYN_ATOL = 1e-3
 OPT_RTOL = 1e-6
@@ -320,9 +322,14 @@ def test_slim_cli_trains_saves_and_exports(tmp_path, monkeypatch):
     _no_tensorboard(monkeypatch)
     args = ["-c", "slim_liso", "--fast-test", "--device", "cpu",
             "--summary_dir", str(tmp_path), "-kv", *KV[0]]
+    calls = {n: (trace.stats(n) or {"calls": 0})["calls"] for n in SLIM_SPANS}
     log_dir = slim_cli.main(args)
     ckpt = log_dir / "ckpts"
     assert checkpoint.latest_step(ckpt) == 3
+    # each of the 3 steps opens the experiment's step and wait spans and
+    # the train step's two
+    assert {n: trace.stats(n)["calls"] - calls[n] for n in SLIM_SPANS} == {
+        n: 3 for n in SLIM_SPANS}
     state = torch.load(ckpt / "3" / checkpoint.STATE_FILE, weights_only=True)
     assert state["step"] == 3 and state["optimizer"]["name"] == "rmsprop"
     assert float(state["movavg"]["bias_counter"]) > 0

@@ -213,6 +213,26 @@ class SlimExperiment:
         restore_checkpoint(ckpt_dir, step, self.trainer)
 
     # ------------------------------------------------------------------
+    def train_loader(self) -> Prefetcher:
+        """The training loader `run` iterates: the Prefetcher over the
+        train dataset at the SLIM batch size, with the configured workers,
+        its batches copied to the trainer's device."""
+        return Prefetcher(
+            self.train_dataset,
+            batch_size=int(self.cfg.SLIM.batch_size),
+            num_workers=int(self.cfg.data.num_workers) or 1,
+            device=self.trainer.device,
+        )
+
+    def train_batch(self, batch: dict) -> Dict[str, float]:
+        """One training step on a batch of `train_loader`: the batch as a
+        FlowSample, `SlimTrainer.train_step`, and the step's metrics read
+        back to the host in one transfer."""
+        metrics = self.trainer.train_step(
+            batch_to_flow_sample(batch, self.trainer.device))
+        values = torch.stack([v.float() for v in metrics.values()]).tolist()
+        return dict(zip(metrics, values))
+
     def run(self, max_steps: Optional[int] = None) -> SlimTrainer:
         """Train `max_steps` steps (default SLIM.iterations.train) through
         the Prefetcher; evaluate and save as the config says, and save at
@@ -225,12 +245,7 @@ class SlimExperiment:
         if not self._started:
             self.maybe_restore()
             self._started = True
-        loader = Prefetcher(
-            self.train_dataset,
-            batch_size=int(sl.batch_size),
-            num_workers=int(self.cfg.data.num_workers) or 1,
-            device=self.trainer.device,
-        )
+        loader = self.train_loader()
         step = 0
         it = iter(loader)
         try:
@@ -242,17 +257,13 @@ class SlimExperiment:
                         except StopIteration:
                             it = iter(loader)
                             batch = next(it)
-                    metrics = self.trainer.train_step(
-                        batch_to_flow_sample(batch, self.trainer.device))
-                    # one host transfer for every metric of the step
-                    values = torch.stack(
-                        [v.float() for v in metrics.values()]).tolist()
+                    metrics = self.train_batch(batch)
                 # the loader's wait, and the rest of the step to its
                 # metrics on the host
                 wait_s = wait.seconds
                 self.tb.global_step = step
                 w = self.tb("train", "metrics/")
-                w.add_scalars(dict(zip(metrics, values)), step)
+                w.add_scalars(metrics, step)
                 w.add_scalar("timing/step_s", step_span.seconds - wait_s, step)
                 w.add_scalar("timing/data_wait_s", wait_s, step)
                 if eval_every and step > 0 and step % eval_every == 0:

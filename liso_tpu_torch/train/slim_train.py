@@ -21,6 +21,7 @@ broadcast from rank 0 at construction.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 import torch
@@ -29,6 +30,7 @@ from liso_tpu_torch.data.sample import FlowSample, PointCloud
 from liso_tpu_torch.losses.slim_loss import (
     SlimLossCfg,
     batched_knn_for_iterations,
+    knn_flow_types,
     slim_loss_single_iteration,
     threshold_update_inputs,
 )
@@ -103,6 +105,12 @@ def adamw_update_(params, grads, mu, nu, count: int, lr,
             if weight_decay:
                 u = u + weight_decay * p
             p.add_(-lr * u)
+
+
+def _train_span(name: str, train: bool):
+    """The span `name` around a part of a train step; nothing around the
+    same code in a prediction."""
+    return trace.span(name) if train else contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -254,8 +262,16 @@ class SlimTrainer:
         batch, _ = self._sort_batch(batch)
         self.model.train(train)
         p0, p1 = batch.pcl_t0, batch.pcl_t1
-        out_fw, out_bw, occ0, occ1 = self.model(
-            p0.pcl, p0.valid, p1.pcl, p1.valid, plain=plain)
+        with _train_span("slim.forward", train):
+            out_fw, out_bw, occ0, occ1 = self.model(
+                p0.pcl, p0.valid, p1.pcl, p1.valid, plain=plain)
+        with _train_span("slim.loss", train):
+            return self._decode_and_loss(batch, out_fw, out_bw, occ0, occ1,
+                                         train, need_loss, plain)
+
+    def _decode_and_loss(self, batch, out_fw, out_bw, occ0, occ1, train,
+                         need_loss, plain):
+        p0, p1 = batch.pcl_t0, batch.pcl_t1
         rc0, _ = pillar_coords(p0.pcl, p0.valid, self.bev)
         rc1, _ = pillar_coords(p1.pcl, p1.valid, self.bev)
         thr = movavg_value(self.movavg)
@@ -285,6 +301,12 @@ class SlimTrainer:
             preds_fw, p0.pcl, p0.valid, p1.pcl, p1.valid, self.lcfg, plain)
         knn_bw_all = batched_knn_for_iterations(
             preds_bw, p1.pcl, p1.valid, p0.pcl, p0.valid, self.lcfg, plain)
+        if train:
+            # the queries handed to the two 1-NN searches: every iteration
+            # and flow type of each direction's padded cloud
+            trace.count("slim.knn_queries",
+                        len(knn_flow_types(self.lcfg)) * len(preds_fw)
+                        * (p0.valid.numel() + p1.valid.numel()))
 
         total = out_fw.new_zeros((), dtype=torch.float32)
         metrics = {}
@@ -320,8 +342,15 @@ class SlimTrainer:
         the gradient before clipping) and `lr` (the schedule at this step;
         0 at step 0). With a group: the global batch's values on every
         rank. Spans (`utils/trace.py`): `slim.loss_and_grads` (with a group,
-        the sums over it included) and `slim.optimizer` (the norm, the clip,
-        the rate and the update)."""
+        the sums over it included), and inside it `slim.forward` (the model
+        in both directions), `slim.loss` (decode of every iteration, the two
+        batched 1-NN searches, the loss terms and the threshold update) and
+        `slim.backward` (`loss.backward()`; autograd launches its kernels
+        from its own thread); `slim.optimizer` (the norm, the clip, the rate
+        and the update). Counters: `slim.knn_queries`, the queries handed
+        to the 1-NN searches; with `detect_anomaly`, `slim.points`, the
+        valid points of both clouds, read with the check's values (a
+        trainer without the check makes no host read, and counts none)."""
         with fp32_precision():
             params = list(self.params.values())
             with trace.span("slim.loss_and_grads"):
@@ -334,10 +363,16 @@ class SlimTrainer:
                     loss = metrics.pop("loss")
             with trace.span("slim.optimizer"):
                 g_norm = global_norm(grads)
-                if self.detect_anomaly and not bool(
-                        torch.isfinite(torch.stack([loss.detach(),
-                                                    g_norm])).all()):
-                    self._raise_anomaly(params, batch, plain, loss, g_norm)
+                if self.detect_anomaly:
+                    # the step's one host read: the check's two values and
+                    # the valid points of both clouds, in one transfer
+                    n_points = (batch.pcl_t0.valid.sum()
+                                + batch.pcl_t1.valid.sum())
+                    lv, gv, npts = torch.stack(
+                        [loss.detach(), g_norm, n_points.float()]).tolist()
+                    trace.count("slim.points", int(npts))
+                    if not (math.isfinite(lv) and math.isfinite(gv)):
+                        self._raise_anomaly(params, batch, plain, loss, g_norm)
                 if self.grad_clip_norm > 0:
                     grads = clip_by_global_norm(grads, g_norm,
                                                 self.grad_clip_norm)
@@ -361,7 +396,8 @@ class SlimTrainer:
             p.grad = None
         loss, movavg, metrics, _ = self._forward_and_loss(
             batch, train=True, plain=plain)
-        loss.backward()
+        with trace.span("slim.backward"):
+            loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         return loss, movavg, metrics, grads

@@ -50,7 +50,7 @@ torch.set_num_threads(1)
 GRID, RANGE, N_MAX, ITERS = 64, 40.0, 2048, 2
 KV = [["SLIM", "model", "num_iters", str(ITERS)]]
 SLIM_SPANS = ("slim.step", "slim.wait", "slim.loss_and_grads",
-              "slim.optimizer")
+              "slim.forward", "slim.loss", "slim.backward", "slim.optimizer")
 FLOW_ATOL = 2e-3  # m, the serving path's tolerance
 DYN_ATOL = 1e-3
 OPT_RTOL = 1e-6
@@ -326,8 +326,8 @@ def test_slim_cli_trains_saves_and_exports(tmp_path, monkeypatch):
     log_dir = slim_cli.main(args)
     ckpt = log_dir / "ckpts"
     assert checkpoint.latest_step(ckpt) == 3
-    # each of the 3 steps opens the experiment's step and wait spans and
-    # the train step's two
+    # each of the 3 steps opens the experiment's step and wait spans, the
+    # train step's two and the three inside its loss_and_grads
     assert {n: trace.stats(n)["calls"] - calls[n] for n in SLIM_SPANS} == {
         n: 3 for n in SLIM_SPANS}
     state = torch.load(ckpt / "3" / checkpoint.STATE_FILE, weights_only=True)

@@ -308,6 +308,40 @@ def test_slim_step_spans():
     assert _calls("slim.loss_and_grads") == _calls("slim.optimizer") == 1
 
 
+def test_slim_step_nests_forward_loss_backward_and_counts():
+    """With the anomaly check on (the SLIM preset's), each step opens
+    slim.forward, slim.loss and slim.backward once inside
+    slim.loss_and_grads, their host times summing to within 10% of it;
+    slim.points counts both clouds' valid points and slim.knn_queries the
+    queries handed to the two 1-NN searches."""
+    iters, n, n_valid1 = 2, 512, 400
+    tt = SlimTrainer(BevSetup((RANGE, RANGE), (32, 32)), num_iters=iters,
+                     use_static_aggr_flow_for_aggr_flow=True,
+                     detect_anomaly=True, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    pts = (torch.rand(1, n, 4, generator=g) - 0.5) * 36
+    valid0 = torch.ones(1, n, dtype=torch.bool)
+    valid1 = torch.arange(n)[None] < n_valid1
+    eye = torch.eye(4)[None]
+    batch = FlowSample(PointCloud(pts, valid0), PointCloud(pts + 0.3, valid1),
+                       eye, eye)
+    tt.train_step(batch)  # the first step's one-time costs stay out
+    trace.reset()
+    steps = 3
+    for _ in range(steps):
+        tt.train_step(batch)
+    inner = ("slim.forward", "slim.loss", "slim.backward")
+    for name in inner + ("slim.loss_and_grads", "slim.optimizer"):
+        assert _calls(name) == steps, name
+    outer = trace.stats("slim.loss_and_grads")["total_ms"]
+    parts = sum(trace.stats(name)["total_ms"] for name in inner)
+    assert 0.9 * outer <= parts <= outer
+    assert trace.counter_ring("slim.points") == [n + n_valid1] * steps
+    # aggregated, dynamic and static-aggregated flow, every iteration, each
+    # direction's padded cloud
+    assert trace.counter_ring("slim.knn_queries") == [3 * iters * 2 * n] * steps
+
+
 def test_fused_streaming_opens_its_four_stages():
     _, slim, det = serve.build_models(grid=GRID, num_iters=2, device="cpu")
     g = torch.Generator().manual_seed(0)

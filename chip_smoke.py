@@ -21,6 +21,9 @@ Phases, each printing JSON lines:
                (knn_banded.contract_report), with the pairs its sweep
                tested (its bound); K4 also at the decoder gather's C = 2
                fp32, with the host time of each step its wrapper shares;
+               the eval BatchNorm + ReLU kernel bitwise at CenterPoint's
+               stage 0 (bf16 NCHW) and a pillar encoder's norm (fp32
+               channel-last, 65536 points), NaN, infinities and -0 in;
                kernel, plain and library
                times (CUDA events, median of 20 calls), for every kernel
                also the kernel alone (torch.profiler, mean of
@@ -635,6 +638,82 @@ def check_gather(gen, cells, nc, c, dtype):
     }
 
 
+def check_bn_relu_eval(gen, shape, channel_dim, dtype, bn_dtype,
+                       layout=None):
+    """The eval BatchNorm + ReLU kernel against its plain version (bitwise,
+    NaN, infinities and signed zeros spread over the input; the same
+    layout) at a path's shape and memory layout; with random running
+    statistics, affine and some biases -0."""
+    import torch
+    import torch.nn.functional as F
+
+    from liso_tpu_torch.models import layers
+
+    c = shape[channel_dim]
+    bn = layers.BatchNorm(c, 1e-3, dtype=bn_dtype, channel_dim=channel_dim,
+                          device="cuda").eval()
+    with torch.no_grad():
+        bn.running_mean.normal_(generator=gen)
+        bn.running_var.uniform_(1e-3, 2.0, generator=gen)
+        bn.weight.normal_(generator=gen)
+        bn.bias.normal_(generator=gen).mul_(0.5)[::5] = -0.0
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
+    idx = torch.randint(0, x.numel(), (35,), generator=gen, device="cuda")
+    x.view(-1)[idx] = torch.tensor(
+        [float("nan"), float("inf"), -float("inf"), -0.0, 0.0],
+        device="cuda").repeat(7).to(dtype)
+    x = x.contiguous(memory_format=layout or torch.contiguous_format)
+    args = (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps,
+            channel_dim, bn_dtype)
+
+    def kernel():
+        with torch.inference_mode():
+            return bn.forward_relu(x)
+
+    def plain():
+        with torch.inference_mode():
+            return layers.bn_relu_eval_plain(x, *args)
+
+    x2d = x if channel_dim == 1 else x.view(-1, c)
+    layout_name = ("channels_last" if layout == torch.channels_last
+                   else "contiguous")
+
+    def library():  # one fused PyTorch call and the relu, fp32 statistics
+        with torch.inference_mode():
+            return torch.relu(F.batch_norm(x2d, bn.running_mean, bn.running_var,
+                                           bn.weight, bn.bias, False, 0.0,
+                                           bn.eps))
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    if (got.dtype != want.dtype or got.stride() != want.stride()
+            or not torch.equal(got.view(bits[got.dtype]),
+                               want.view(bits[want.dtype]))):
+        fail(f"bn_relu_eval differs from its plain version at {list(shape)} "
+             f"{dtype_name(dtype)} {layout_name}")
+    nbytes = x.numel() * (x.element_size() + got.element_size())
+    bms, bby = bound(nbytes, 0, FP32_FLOP_PER_S)
+    out_name = dtype_name(got.dtype)
+    return {
+        "name": "bn_relu_eval", "route": "cuda",
+        "source": "liso_tpu_torch/kernels/bn_relu_eval.cu",
+        "replaces": "none (the eval BatchNorm + ReLU composition of "
+                    "liso_tpu_torch/models/layers.py)",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(kernel),
+        "kernel_only_ms": kernel_only_ms(kernel, "bn_relu_eval_kernel"),
+        "host_ms": host_ms(kernel),
+        "plain_ms": cuda_ms(plain),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(library),
+        "library_call": "torch.relu(F.batch_norm(training=False))",
+        "bytes": nbytes,
+        "shape": f"{list(shape)} {dtype_name(dtype)} -> {out_name}, "
+                 f"channel dim {channel_dim}, {layout_name}",
+    }
+
+
 def wrapper_host_steps(grid, cells):
     """Host ms (host_ms, mean of 200 calls) of each step a kernel wrapper
     shares, taken alone at K4's inputs, beside the whole K4 wrapper and
@@ -904,6 +983,18 @@ def phase_kernels():
         "shape": f"f0 [{BATCH}, {hc * hc}, 128] bf16, f1cat {list(f1cat.shape)} "
                  f"bf16 -> taps {list(got.shape)} f32",
     })
+
+    # eval BatchNorm + ReLU at CenterPoint's stage 0 (channels_last, as the
+    # path holds it; and NCHW) and a pillar encoder's norm in a streaming
+    # step at n_max 65536
+    stage0 = (BATCH, 64, GRID // 2, GRID // 2)
+    bn_stage0 = check_bn_relu_eval(g, stage0, 1, torch.bfloat16,
+                                   torch.bfloat16, torch.channels_last)
+    bn_stage0["nchw_shape"] = shape_entry(check_bn_relu_eval(
+        g, stage0, 1, torch.bfloat16, torch.bfloat16))
+    bn_stage0["pfn_shape"] = shape_entry(check_bn_relu_eval(
+        g, (BATCH, 65536, 64), -1, torch.float32, None))
+    results.append(bn_stage0)
     return results
 
 
@@ -1534,8 +1625,10 @@ def phase_detect_train(kernels):
         torch.cuda.synchronize()
         pred_ms.append((time.perf_counter() - t0) * 1e3)
     pred_launches = dict(kernels.launches)
-    if pred_launches != {**zero, "grid_scatter_max_occ": D_PREDICTS}:
-        fail(f"predict_step launches {pred_launches}, expected one K1 per call")
+    if pred_launches != {**zero, "grid_scatter_max_occ": D_PREDICTS,
+                         "bn_relu_eval": eval_norms(trainer.model) * D_PREDICTS}:
+        fail(f"predict_step launches {pred_launches}, expected one K1 and "
+             f"one eval BN + ReLU per norm per call")
     kept = boxes.valid.sum(-1)
     if tuple(boxes.pos.shape) != (D_BATCH, trainer.post_max_boxes, 3) or bool(
             (kept > trainer.post_max_boxes).any()):
@@ -1604,6 +1697,18 @@ def state_equal(a, b) -> list:
                           == b.reshape(-1).view(torch.uint8)).all()))
         return [] if same else [""]
     return [] if a == b else [f"{a!r} != {b!r}"]
+
+
+def eval_norms(model) -> int:
+    """Launches of the eval BatchNorm + ReLU kernel in one eval forward of
+    `model` without a gradient: one for each of its BatchNorms, which
+    every model of the port runs once a forward through `forward_relu`
+    (baseline CenterPoint: 21 and its pillar encoder's; a SLIM frame: its
+    pillar encoder's). `plain=True` keeps the kernel: it is bitwise its
+    composition."""
+    from liso_tpu_torch.models.layers import BatchNorm
+
+    return sum(isinstance(m, BatchNorm) for m in model.modules())
 
 
 def confirm_launches(fn, expect, what, host=False):
@@ -1744,7 +1849,8 @@ def phase_slim_experiment(kernels):
         torch.cuda.synchronize()
         export_s = time.perf_counter() - t0
         export_launches = dict(kernels.launches)
-        per_predict = {"grid_scatter_max_occ": 2, "corr_window_fwd": 2 * T_ITERS}
+        per_predict = {"grid_scatter_max_occ": 2, "corr_window_fwd": 2 * T_ITERS,
+                       "bn_relu_eval": 2}
         n_predicts = E_EXPORTS * len(EXPORT_PAIRS)
         expect = {k: per_predict.get(k, 0) * n_predicts for k in export_launches}
         if n != E_EXPORTS or export_launches != expect:
@@ -2142,7 +2248,8 @@ def phase_mining(kernels):
                 r1_s = time.perf_counter() - t0
                 r1_launches = dict(kernels.launches)
             n_chunks = -(-M_FRAMES // M_CHUNK)
-            if r1_launches != {**zero, "grid_scatter_max_occ": n_chunks}:
+            if r1_launches != {**zero, "grid_scatter_max_occ": n_chunks,
+                               "bn_relu_eval": eval_norms(det.model) * n_chunks}:
                 fail(f"round 1 launches {r1_launches}, expected one K1 per "
                      f"chunk of {M_CHUNK} frames ({n_chunks})")
             mined1 = loop.mined_db
@@ -2167,7 +2274,8 @@ def phase_mining(kernels):
                 "launches_profiled": counts,
                 "device_ms_by_family": families(rows)}
             confirm_launches(lambda: det.predict_step(pts, valid),
-                             {**zero, "grid_scatter_max_occ": 1},
+                             {**zero, "grid_scatter_max_occ": 1,
+                              "bn_relu_eval": eval_norms(det.model)},
                              "a mining predict_step at batch 8")
             # the same round through the plain versions
             boxes_k = detect_many(frames)
@@ -2176,7 +2284,12 @@ def phase_mining(kernels):
             boxes_p = loop._detector_detect_batch_fn()(frames)
             loop.mine(train_ds)
             torch.cuda.synchronize()
-            if any(kernels.launches.values()):
+            # no kernel but the eval BN + ReLU (bitwise its composition),
+            # per norm of each chunk's forward: the detect call's and the
+            # round's
+            plain_forwards = -(-len(frames) // M_CHUNK) + n_chunks
+            if dict(kernels.launches) != {
+                    **zero, "bn_relu_eval": eval_norms(det.model) * plain_forwards}:
                 fail(f"the plain round 1 launched kernels: {dict(kernels.launches)}")
         finally:
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
@@ -2374,21 +2487,29 @@ def phase_eval(kernels, handoff):
     kres = [check_scatter_max(torch.Generator(device="cuda").manual_seed(13),
                               cells, bev.num_cells, 64, torch.float32)]
     confirm_launches(lambda: det.predict_step(pts, valid),
-                     {**zero, "grid_scatter_max_occ": 1},
+                     {**zero, "grid_scatter_max_occ": 1,
+                      "bn_relu_eval": eval_norms(det.model)},
                      "an eval predict_step at batch 1")
 
     tmp = tempfile.TemporaryDirectory(prefix="eval_", dir=OUT_DIR)
     launches = dict(zero)
 
-    def count(fn, expect_k1):
-        """fn() with the counts reset just before and read just after."""
+    def count(fn, expect_k1, forwards=None):
+        """fn() with the counts reset just before and read just after: K1
+        `expect_k1` times, the eval BN + ReLU per norm of each of the
+        detector's `forwards` (default: one per K1; a plain forward
+        launches no K1)."""
         torch.cuda.synchronize()
         kernels.reset_launches()
         out = fn()
         torch.cuda.synchronize()
         got = dict(kernels.launches)
-        if got != {**zero, "grid_scatter_max_occ": expect_k1}:
-            fail(f"eval launches {got}, expected {expect_k1} of K1")
+        n_bn = eval_norms(det.model) * (expect_k1 if forwards is None
+                                        else forwards)
+        if got != {**zero, "grid_scatter_max_occ": expect_k1,
+                   "bn_relu_eval": n_bn}:
+            fail(f"eval launches {got}, expected {expect_k1} of K1 and "
+                 f"{n_bn} of the eval BN + ReLU")
         for k, v in got.items():
             launches[k] += v
         return out
@@ -2422,7 +2543,8 @@ def phase_eval(kernels, handoff):
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
             try:
                 loop.state = PlainDetector(det)
-                m2_plain = count(lambda: loop.validate(1), 0)
+                m2_plain = count(lambda: loop.validate(1), 0,
+                                 len(val_ds) + len(train_ds))
             finally:
                 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
                 loop.state = det
@@ -2827,9 +2949,12 @@ def phase_rounds(kernels):
         chunks = -(-n_train // M_CHUNK)
         # K1: each train step, each detector mining chunk (rounds 1, 2),
         # the final validate's predict_step (val + val-on-train); the fused
-        # VJP: each train step
-        expect = {**zero, "grid_scatter_max_occ": R_STEPS + 2 * chunks
-                  + n_val + n_train, "scatter_max_vjp": R_STEPS}
+        # VJP: each train step; the eval BN + ReLU: each norm of each of
+        # those detector forwards but the train steps'
+        forwards = 2 * chunks + n_val + n_train
+        expect = {**zero, "grid_scatter_max_occ": R_STEPS + forwards,
+                  "scatter_max_vjp": R_STEPS,
+                  "bn_relu_eval": eval_norms(loop.trainer.model) * forwards}
         if launches != expect:
             fail(f"rounds loop launches {launches}, expected {expect}")
         mined, resets = run_lines(out.getvalue())
@@ -3152,7 +3277,9 @@ def phase_detectors(kernels):
                 torch.cuda.synchronize()
                 pred_ms.append((time.perf_counter() - t0) * 1e3)
             pred_launches = dict(kernels.launches)
-            if pred_launches != {**zero, "grid_scatter_max_occ": DT_PREDICTS}:
+            if pred_launches != {**zero, "grid_scatter_max_occ": DT_PREDICTS,
+                                 "bn_relu_eval": (eval_norms(trainer.model)
+                                                  * DT_PREDICTS)}:
                 fail(f"{name}: predict_step launches {pred_launches}")
             ref = trainer.predict_step(pts, valid, plain=True)
             diff = max(float((getattr(boxes, f) - getattr(ref, f)).abs().max())
@@ -3196,9 +3323,12 @@ def phase_detectors(kernels):
         n_train = len(loop.train_dataset_factory(None))
         chunks = -(-n_train // M_CHUNK)
         # K1: each step, each detector mining chunk (rounds 1 and 2), each
-        # validate's predict_step (val + val-on-train); the VJP: each step
-        expect = {**zero, "grid_scatter_max_occ": DT_TOTAL + 2 * chunks
-                  + 2 * (n_val + n_train), "scatter_max_vjp": DT_TOTAL}
+        # validate's predict_step (val + val-on-train); the VJP: each step;
+        # the eval BN + ReLU: each norm of those forwards but the steps'
+        forwards = 2 * chunks + 2 * (n_val + n_train)
+        expect = {**zero, "grid_scatter_max_occ": DT_TOTAL + forwards,
+                  "scatter_max_vjp": DT_TOTAL,
+                  "bn_relu_eval": eval_norms(loop.trainer.model) * forwards}
         mined, resets = run_lines(out.getvalue())
         ckpts = sorted(int(p.name) for p in (Path(log_dir) / "ckpts").iterdir()
                        if p.name.isdigit())
@@ -4054,11 +4184,14 @@ def phase_etl(kernels):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         launches = dict(kernels.launches)
-        if launches != {**zero, "grid_scatter_max_occ": DT_PREDICTS}:
+        n_bn = eval_norms(trainer.model)
+        if launches != {**zero, "grid_scatter_max_occ": DT_PREDICTS,
+                        "bn_relu_eval": n_bn * DT_PREDICTS}:
             fail(f"ETL predict_step launches {launches}")
         counts, dev_ms, _, _ = confirm_launches(
             lambda: trainer.predict_step(pts, valid),
-            {**zero, "grid_scatter_max_occ": 1}, "an ETL predict_step")
+            {**zero, "grid_scatter_max_occ": 1, "bn_relu_eval": n_bn},
+            "an ETL predict_step")
         ref = trainer.predict_step(pts, valid, plain=True)
         fields = ("pos", "dims", "rot", "probs")
         diff = max(float((getattr(boxes, f) - getattr(ref, f)).abs().max())
@@ -4202,12 +4335,15 @@ def main() -> int:
     kernels.reset_launches()
     res = run_path(serve, slim, det, frames, valid)
     launches = dict(kernels.launches)
+    n_det = eval_norms(det)
     expect = {
         **{k: 0 for k in launches},
         # fused_forward: 2 SLIM frames + 1 detector frame; encode: 1;
-        # each streaming step: 1 fused scatter. K2: 6 per flow pass.
+        # each streaming step: 1 fused scatter. K2: 6 per flow pass. Eval
+        # BN + ReLU: a SLIM frame's 1, a detector frame's n_det.
         "grid_scatter_max_occ": 3 + 1 + STEPS,
         "corr_window_fwd": ITERS * (1 + STEPS),
+        "bn_relu_eval": 2 + n_det + 1 + STEPS * (1 + n_det),
     }
     if launches != expect:
         fail(f"kernel launches on the main path {launches}, expected {expect}")
@@ -4228,11 +4364,13 @@ def main() -> int:
         "fused_forward": confirm_launches(
             lambda: serve.fused_forward(slim, det, frames[0], valid, frames[1],
                                         valid),
-            {**zero, "grid_scatter_max_occ": 3, "corr_window_fwd": ITERS},
+            {**zero, "grid_scatter_max_occ": 3, "corr_window_fwd": ITERS,
+             "bn_relu_eval": 2 + n_det},
             "fused_forward"),
         "fused_streaming": confirm_launches(
             lambda: serve.fused_streaming(slim, det, fmap, cn, frames[1], valid),
-            {**zero, "grid_scatter_max_occ": 1, "corr_window_fwd": ITERS},
+            {**zero, "grid_scatter_max_occ": 1, "corr_window_fwd": ITERS,
+             "bn_relu_eval": 1 + n_det},
             "fused_streaming"),
     }
     # busy share: the profiled call's device time over the host time of the
@@ -4429,7 +4567,7 @@ def main() -> int:
             "second_shape", "decoder_shape", "host_steps_ms",
             "skewed_layout", "slim_step_layout", "serving_step_layout",
             "needed_pairs", "visited_pairs", "visited_over_needed",
-            "band_bound_ms", "band_agreement")
+            "band_bound_ms", "band_agreement", "nchw_shape", "pfn_shape")
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
           "slim_experiment_s": experiment["phase_s"],
           "mining_s": mining["phase_s"], "eval_s": evaluation["phase_s"],

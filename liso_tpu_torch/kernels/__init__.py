@@ -39,6 +39,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of each source's entry point: (function name, argtypes)
 SOURCES = {
     "grid_scatter_max": (
@@ -82,6 +83,12 @@ SOURCES = {
         "grid_reduce_add",
         # g, cells, out, B, N, C, num_cells, is_bf16, stream
         [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "bn_relu_eval": (
+        "bn_relu_eval",
+        # x, mean, scale, weight, bias, out, planes, C, inner, in_bf16,
+        # out_bf16, stream
+        [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
     ),
 }
 

@@ -34,7 +34,7 @@ class ConvBNRelu(nn.Module):
         self.bn = BatchNorm(filters, 1e-3, dtype=dtype, device=device)
 
     def forward(self, x):
-        return torch.relu(self.bn(self.conv(x)))
+        return self.bn.forward_relu(self.conv(x))
 
 
 class RPNStage(nn.Module):
@@ -117,7 +117,7 @@ class SepHead(nn.Module):
             setattr(self, f"{name}_final", Conv(head_conv, channels, 3, **kw))
 
     def forward(self, x):
-        y = torch.relu(self.fused_bn0(self.fused_conv0(x)))
+        y = self.fused_bn0.forward_relu(self.fused_conv0(x))
         out = {}
         for j, (name, _) in enumerate(self.heads):
             sl = y[:, j * self.head_conv : (j + 1) * self.head_conv]

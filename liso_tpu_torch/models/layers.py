@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from liso_tpu_torch import kernels
 from liso_tpu_torch.parallel.mesh import batch_sum, batch_total
 
 
@@ -107,12 +108,83 @@ class GroupNorm(nn.GroupNorm):
         return y.to(dt)
 
 
+def batch_norm_eval(x, running_mean, running_var, weight, bias, eps,
+                    channel_dim=1, dtype=None):
+    """Eval BatchNorm over `channel_dim`: (x - running_mean) * rsqrt(
+    running_var + eps) * weight + bias, each op in fp32 as written, output
+    in `dtype` (else fp32)."""
+    shape = [1] * x.dim()
+    shape[channel_dim] = -1
+    v = lambda t: t.reshape(shape)
+    y = (x.float() - v(running_mean)) * v(torch.rsqrt(running_var + eps))
+    y = y * v(weight) + v(bias)
+    return y.to(dtype) if dtype is not None else y
+
+
+def bn_relu_eval_plain(x, running_mean, running_var, weight, bias, eps,
+                       channel_dim=1, dtype=None):
+    """relu(batch_norm_eval(...)): the plain version of `bn_relu_eval`."""
+    return torch.relu(batch_norm_eval(x, running_mean, running_var, weight,
+                                      bias, eps, channel_dim, dtype))
+
+
+_BN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def bn_relu_eval(x, running_mean, running_var, weight, bias, eps,
+                 channel_dim=1, dtype=None):
+    """`bn_relu_eval_plain` in one pass: on the card one launch of
+    `kernels/bn_relu_eval.cu`, which reads x once and writes the result
+    once, bitwise the plain version (bf16 or fp32 in and out; the norm's
+    statistics and affine in fp32), in x's layout (contiguous or, for NCHW,
+    channels_last). CPU tensors take the plain version.
+    No autograd: callers run it without a gradient."""
+    if x.device.type == "cpu":
+        return bn_relu_eval_plain(x, running_mean, running_var, weight, bias,
+                                  eps, channel_dim, dtype)
+    out_dtype = dtype or torch.float32
+    if x.dtype not in _BN_DTYPES or out_dtype not in _BN_DTYPES:
+        raise TypeError(f"bn_relu_eval takes fp32 or bf16, got {x.dtype} -> "
+                        f"{out_dtype}")
+    # the kernel walks x's memory, so it keeps x's layout as the composition
+    # does: NCHW in channels_last memory (CenterPoint's maps, since its
+    # input is a channels-last image) is channel-last there
+    if not (x.is_contiguous() or (x.dim() == 4 and x.is_contiguous(
+            memory_format=torch.channels_last))):
+        x = x.contiguous()
+    cd = channel_dim % x.dim()
+    c = x.shape[cd]
+    inner = x.stride(cd) if c > 1 else x.numel()
+    consts = [t.contiguous() for t in (running_mean,
+                                       torch.rsqrt(running_var + eps),
+                                       weight, bias)]
+    for t in consts:
+        if t.dtype != torch.float32 or t.shape != (c,) or t.device != x.device:
+            raise ValueError(f"bn_relu_eval: a constant {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device} for {c} "
+                             f"channels of {x.device}")
+    out = torch.empty_like(x, dtype=out_dtype)
+    if out.numel():
+        kernels.check(
+            kernels.function("bn_relu_eval")(
+                x.data_ptr(), *(t.data_ptr() for t in consts), out.data_ptr(),
+                x.numel() // inner, c, inner, int(x.dtype == torch.bfloat16),
+                int(out_dtype == torch.bfloat16), kernels.stream(x.device),
+            ),
+            "bn_relu_eval",
+        )
+        kernels.launches["bn_relu_eval"] += 1
+    return out
+
+
 class BatchNorm(nn.Module):
     """flax `BatchNorm(momentum=0.99, use_fast_variance=False)` over the
     last axis of a [..., C] tensor or the channel axis of NCHW
     (`channel_dim`), computed in fp32, output in `dtype` (else fp32). The
     mode follows `self.training`:
-      * eval: (x - running_mean) * rsqrt(running_var + eps) * scale + bias;
+      * eval: (x - running_mean) * rsqrt(running_var + eps) * scale + bias
+        (`batch_norm_eval`; `forward_relu` adds the ReLU, in one kernel
+        where it can);
       * train: the same with the batch mean and the biased variance over
         every axis but the channels, and the running statistics move as
         running = 0.99 running + 0.01 batch (flax keeps the biased
@@ -135,17 +207,21 @@ class BatchNorm(nn.Module):
         self.group = None
 
     def forward(self, x):
-        if self.training:
-            y = self._train_forward(x)
-        else:
-            shape = [1] * x.dim()
-            shape[self.channel_dim] = -1
-            v = lambda t: t.reshape(shape)
-            y = (x.float() - v(self.running_mean)) * v(
-                torch.rsqrt(self.running_var + self.eps)
-            )
-            y = y * v(self.weight) + v(self.bias)
+        if not self.training:
+            return batch_norm_eval(x, *self._eval_args())
+        y = self._train_forward(x)
         return y.to(self.dtype) if self.dtype is not None else y
+
+    def _eval_args(self):
+        return (self.running_mean, self.running_var, self.weight, self.bias,
+                self.eps, self.channel_dim, self.dtype)
+
+    def forward_relu(self, x):
+        """relu(self(x)). In eval mode, without autograd, on the card: one
+        launch of the `bn_relu_eval` kernel, bitwise the same."""
+        if self.training or not x.is_cuda or torch.is_grad_enabled():
+            return torch.relu(self(x))
+        return bn_relu_eval(x, *self._eval_args())
 
     def _train_forward(self, x):
         """One fused `F.batch_norm` normalises with the batch mean and the

@@ -49,6 +49,11 @@ class MaskedBatchNorm(BatchNorm):
             return super().forward(x)
         return self._train_forward_global(x, mask)
 
+    def forward_relu(self, x, mask=None):
+        if self.training:
+            return torch.relu(self(x, mask))
+        return super().forward_relu(x)
+
 
 def prepare_pillar_inputs(
     points: torch.Tensor, valid: torch.Tensor, bev: BevSetup,
@@ -122,8 +127,7 @@ class PillarEncoder(nn.Module):
         else:
             self._check_prepared(prepared)
         x = self.pfn_linear(prepared.feats)
-        x = self.pfn_bn(x, prepared.in_pillar)
-        return torch.relu(x), prepared
+        return self.pfn_bn.forward_relu(x, prepared.in_pillar), prepared
 
     def forward(self, points, valid, prepared=None, plain: bool = False):
         h, w = self.bev.grid_size

@@ -6,7 +6,9 @@
 `device="cpu"`; without CUDA and without that request it raises. The
 forward functions run under `torch.inference_mode()` on the models' device.
 `plain=True` runs the plain PyTorch versions of the kernels on the card;
-only tests and chip_smoke.py pass it.
+only tests and chip_smoke.py pass it. The eval BatchNorm + ReLU kernel
+(`models/layers.bn_relu_eval`, bitwise its composition) runs either way:
+the norms take it in eval mode without autograd.
 
 On the card `fused_streaming` replays its flow stage (K2, the GRU
 iterations, the upsampling: about 800 launches at 6 iterations) as one

@@ -155,8 +155,10 @@ def test_serving_path_kernels_vs_plain(gen):
     valid = torch.ones(2, 2048, dtype=torch.bool, device="cuda")
     kernels.reset_launches()
     got = serve.fused_forward(slim, det, pts[0], valid, pts[1], valid)
+    # eval BN + ReLU: SLIM's PFN norm per frame, CenterPoint's 21 and its PFN
     assert kernels.launches == {**{k: 0 for k in kernels.launches},
-                                "grid_scatter_max_occ": 3, "corr_window_fwd": 2}
+                                "grid_scatter_max_occ": 3, "corr_window_fwd": 2,
+                                "bn_relu_eval": 2 + 22}
     want = serve.fused_forward(slim, det, pts[0], valid, pts[1], valid, plain=True)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=2e-3, rtol=1e-3)
@@ -493,8 +495,9 @@ def test_train_step_kernels_vs_plain(gen):
         out.append(m)
         if not plain:
             # every kernel but K1-add and K4, which no path of the port
-            # runs (the fused VJP replaced K4's two launches)
-            idle = ("grid_reduce_add", "grid_gather")
+            # runs (the fused VJP replaced K4's two launches), and the eval
+            # BN + ReLU (train mode)
+            idle = ("grid_reduce_add", "grid_gather", "bn_relu_eval")
             assert all(kernels.launches[k] == 0 for k in idle)
             assert all(v > 0 for k, v in kernels.launches.items()
                        if k not in idle), kernels.launches

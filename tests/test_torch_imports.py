@@ -191,7 +191,7 @@ def test_kernels_build_lazily():
     assert set(kernels.launches) == {
         "grid_scatter_max_occ", "corr_window_fwd", "grid_gather",
         "grid_reduce_add_c1", "corr_window_bwd", "knn_banded",
-        "grid_reduce_add", "scatter_max_vjp",
+        "grid_reduce_add", "scatter_max_vjp", "bn_relu_eval",
     }
 
 

@@ -1470,7 +1470,8 @@ def phase_train(kernels):
     mk = trainer.train_step(batch)
     restore(trainer, snap)
     kernels.reset_launches()
-    mp = trainer.train_step(batch, plain=True)
+    with kernels.plain_versions():
+        mp = trainer.train_step(batch)
     torch.cuda.synchronize()
     if any(kernels.launches.values()):
         fail(f"the plain step launched kernels: {dict(kernels.launches)}")
@@ -1601,7 +1602,8 @@ def phase_detect_train(kernels):
         mk = trainer.train_step(pts, valid, target)
         restore(trainer, snap)
         kernels.reset_launches()
-        mp = trainer.train_step(pts, valid, target, plain=True)
+        with kernels.plain_versions():
+            mp = trainer.train_step(pts, valid, target)
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
@@ -1636,7 +1638,8 @@ def phase_detect_train(kernels):
     for f in ("pos", "dims", "rot", "probs"):
         if not bool(torch.isfinite(getattr(boxes, f)).all()):
             fail(f"predict_step {f} not finite")
-    ref = trainer.predict_step(pts, valid, plain=True)
+    with kernels.plain_versions():
+        ref = trainer.predict_step(pts, valid)
     box_diff = max(float((getattr(boxes, f) - getattr(ref, f)).abs().max())
                    for f in ("pos", "dims", "rot", "probs"))
     if not torch.equal(boxes.valid, ref.valid) or box_diff > DET_BOX_ATOL:
@@ -1704,8 +1707,7 @@ def eval_norms(model) -> int:
     `model` without a gradient: one for each of its BatchNorms, which
     every model of the port runs once a forward through `forward_relu`
     (baseline CenterPoint: 21 and its pillar encoder's; a SLIM frame: its
-    pillar encoder's). `plain=True` keeps the kernel: it is bitwise its
-    composition."""
+    pillar encoder's); none inside `kernels.plain_versions()`."""
     from liso_tpu_torch.models.layers import BatchNorm
 
     return sum(isinstance(m, BatchNorm) for m in model.modules())
@@ -1875,7 +1877,8 @@ def phase_slim_experiment(kernels):
         t0 = time.perf_counter()
         got = export_sample(trainer, train_ds, 0)
         sample_ms = (time.perf_counter() - t0) * 1e3
-        ref = export_sample(trainer, train_ds, 0, plain=True)
+        with kernels.plain_versions():
+            ref = export_sample(trainer, train_ds, 0)
         flow_diff = max(float(np.abs(got[k] - ref[k]).max())
                         for k in got if k.startswith("bev_raw_flow"))
         dyn_diff = max(float(np.abs(got[k] - ref[k]).max())
@@ -2059,16 +2062,6 @@ def db_diff(got, want):
             diff["rot"] = max(diff["rot"], float(d.max()))
             diff["dims"] = max(diff["dims"], float(np.abs(g["dims"] - w["dims"]).max()))
     return same_ids, diff
-
-
-class PlainDetector:
-    """A trainer's predict_step through the kernels' plain versions."""
-
-    def __init__(self, trainer):
-        self.trainer = trainer
-
-    def predict_step(self, points, valid):
-        return self.trainer.predict_step(points, valid, plain=True)
 
 
 def smoothing_on_one_track():
@@ -2279,17 +2272,12 @@ def phase_mining(kernels):
                              "a mining predict_step at batch 8")
             # the same round through the plain versions
             boxes_k = detect_many(frames)
-            loop.state = PlainDetector(det)
             kernels.reset_launches()
-            boxes_p = loop._detector_detect_batch_fn()(frames)
-            loop.mine(train_ds)
+            with kernels.plain_versions():
+                boxes_p = loop._detector_detect_batch_fn()(frames)
+                loop.mine(train_ds)
             torch.cuda.synchronize()
-            # no kernel but the eval BN + ReLU (bitwise its composition),
-            # per norm of each chunk's forward: the detect call's and the
-            # round's
-            plain_forwards = -(-len(frames) // M_CHUNK) + n_chunks
-            if dict(kernels.launches) != {
-                    **zero, "bn_relu_eval": eval_norms(det.model) * plain_forwards}:
+            if any(kernels.launches.values()):
                 fail(f"the plain round 1 launched kernels: {dict(kernels.launches)}")
         finally:
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
@@ -2494,18 +2482,17 @@ def phase_eval(kernels, handoff):
     tmp = tempfile.TemporaryDirectory(prefix="eval_", dir=OUT_DIR)
     launches = dict(zero)
 
-    def count(fn, expect_k1, forwards=None):
+    def count(fn, expect_k1):
         """fn() with the counts reset just before and read just after: K1
-        `expect_k1` times, the eval BN + ReLU per norm of each of the
-        detector's `forwards` (default: one per K1; a plain forward
-        launches no K1)."""
+        `expect_k1` times and the eval BN + ReLU per norm of each of the
+        detector's forwards, one per K1 (none inside
+        `kernels.plain_versions()`)."""
         torch.cuda.synchronize()
         kernels.reset_launches()
         out = fn()
         torch.cuda.synchronize()
         got = dict(kernels.launches)
-        n_bn = eval_norms(det.model) * (expect_k1 if forwards is None
-                                        else forwards)
+        n_bn = eval_norms(det.model) * expect_k1
         if got != {**zero, "grid_scatter_max_occ": expect_k1,
                    "bn_relu_eval": n_bn}:
             fail(f"eval launches {got}, expected {expect_k1} of K1 and "
@@ -2542,12 +2529,10 @@ def phase_eval(kernels, handoff):
             saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
             try:
-                loop.state = PlainDetector(det)
-                m2_plain = count(lambda: loop.validate(1), 0,
-                                 len(val_ds) + len(train_ds))
+                with kernels.plain_versions():
+                    m2_plain = count(lambda: loop.validate(1), 0)
             finally:
                 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
-                loop.state = det
             plain_calls = rec.calls[5:7]
         res["launches"] = launches
         res["runs"] = {"mined_db_train": eval_call_summary(run1),
@@ -2915,7 +2900,8 @@ def phase_rounds(kernels):
             mk = trainer.train_step(pts, valid, target)
             restore(trainer, snap)
             kernels.reset_launches()
-            mp = trainer.train_step(pts, valid, target, plain=True)
+            with kernels.plain_versions():
+                mp = trainer.train_step(pts, valid, target)
             torch.cuda.synchronize()
         finally:
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
@@ -3196,7 +3182,8 @@ def phase_detectors(kernels):
                 mk = trainer.train_step(pts, valid, target)
                 restore(trainer, snap)
                 kernels.reset_launches()
-                mp = trainer.train_step(pts, valid, target, plain=True)
+                with kernels.plain_versions():
+                    mp = trainer.train_step(pts, valid, target)
                 torch.cuda.synchronize()
             finally:
                 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
@@ -3281,7 +3268,8 @@ def phase_detectors(kernels):
                                  "bn_relu_eval": (eval_norms(trainer.model)
                                                   * DT_PREDICTS)}:
                 fail(f"{name}: predict_step launches {pred_launches}")
-            ref = trainer.predict_step(pts, valid, plain=True)
+            with kernels.plain_versions():
+                ref = trainer.predict_step(pts, valid)
             diff = max(float((getattr(boxes, f) - getattr(ref, f)).abs().max())
                        for f in box_fields)
             kept = boxes.valid.sum(-1).tolist()
@@ -3981,7 +3969,8 @@ def phase_reference_raft(kernels):
                                  "device_ms_by_family": families(rows)},
                     "flow_abs_max_m": float(out[-1, ..., 4:6].abs().max())})
         # the forward through the plain versions
-        ref = net(img0, img1, plain=True)
+        with kernels.plain_versions():
+            ref = net(img0, img1)
         diffs = {"flow_m": float((out[..., 4:8] - ref[..., 4:8]).abs().max()),
                  "logits": float((out[..., :4] - ref[..., :4]).abs().max()),
                  "weight_logit": float((out[..., 8:] - ref[..., 8:]).abs().max())}
@@ -4192,7 +4181,8 @@ def phase_etl(kernels):
             lambda: trainer.predict_step(pts, valid),
             {**zero, "grid_scatter_max_occ": 1, "bn_relu_eval": n_bn},
             "an ETL predict_step")
-        ref = trainer.predict_step(pts, valid, plain=True)
+        with kernels.plain_versions():
+            ref = trainer.predict_step(pts, valid)
         fields = ("pos", "dims", "rot", "probs")
         diff = max(float((getattr(boxes, f) - getattr(ref, f)).abs().max())
                    for f in fields)
@@ -4214,24 +4204,24 @@ def phase_etl(kernels):
     return [k1], res
 
 
-def run_path(serve, slim, det, frames, valid, plain=False):
+def run_path(serve, slim, det, frames, valid):
     """fused_forward, then encode + chained fused_streaming steps."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     flow_ff, pos_ff, probs_ff = serve.fused_forward(
-        slim, det, frames[0], valid, frames[1], valid, plain=plain
+        slim, det, frames[0], valid, frames[1], valid
     )
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    fmap, cn = serve.encode(slim, frames[0], valid, plain=plain)
+    fmap, cn = serve.encode(slim, frames[0], valid)
     torch.cuda.synchronize()
     step_ms = []
     for pts in frames[1:]:  # each frame's result is awaited, as a server does
         t2 = time.perf_counter()
         fmap, cn, flow, pos, probs = serve.fused_streaming(
-            slim, det, fmap, cn, pts, valid, plain=plain
+            slim, det, fmap, cn, pts, valid
         )
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t2) * 1e3)
@@ -4395,7 +4385,8 @@ def main() -> int:
     k2_step = k2_lookups_layout(corr_lookups(
         flow_stage, ITERS, "a streaming step's flow stage"),
         "the streaming step")
-    ref = run_path(serve, slim, det, frames, valid, plain=True)
+    with kernels.plain_versions():
+        ref = run_path(serve, slim, det, frames, valid)
     r_flow_ff, r_probs_ff, r_flow, _, r_probs = ref.pop("outputs")
     diffs = {
         "fused_forward_flow": float((flow_ff - r_flow_ff).abs().max()),

@@ -5,5 +5,6 @@ numpy only: nothing of JAX and nothing of `liso_tpu`. Entry points build
 their models on the card (`cuda`) unless the caller passes `device="cpu"`.
 Every Pallas TPU kernel on a ported path has a hand-written CUDA C++ kernel
 in `kernels/`, launched for CUDA tensors, and a plain PyTorch version beside
-it in the same module, used for CPU tensors.
+it in the same module, used for CPU tensors and, on the card, inside
+`kernels.plain_versions()`.
 """

@@ -11,9 +11,15 @@ loaded when this module is imported: the CPU path never needs `nvcc`.
 Every C entry point takes raw device pointers and the CUDA stream as
 integers, launches on that stream without synchronising, and returns the
 `cudaError_t` of the launch, which `check` turns into an exception.
+
+Every wrapper (`ops/`, `models/layers.bn_relu_eval`, serve's flow stage)
+asks `use_plain` whether to run its plain PyTorch version in place of the
+kernel: for CPU tensors, inside `plain_versions()`, or for an `ops/`
+wrapper's own `plain=True`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -103,6 +109,33 @@ _functions: dict[str, ctypes._CFuncPtr] = {}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+_plain_depth = 0
+
+
+@contextlib.contextmanager
+def plain_versions(on: bool = True):
+    """While open (nested or not), every wrapper runs its plain PyTorch
+    version, on the card too; `on=False` opens nothing. The depth is one
+    for the process, not per thread: autograd's backward thread sees the
+    scope, and so do the loader's. A wrapper asks when it runs, so a
+    backward inside a scope runs plain even where its forward did not."""
+    global _plain_depth
+    if not on:
+        yield
+        return
+    _plain_depth += 1
+    try:
+        yield
+    finally:
+        _plain_depth -= 1
+
+
+def use_plain(t: torch.Tensor, plain: bool = False) -> bool:
+    """Whether a wrapper given `t` runs its plain version: `plain`, an open
+    `plain_versions()` scope, or a CPU tensor."""
+    return plain or _plain_depth > 0 or t.device.type == "cpu"
 
 
 def _nvcc() -> str:

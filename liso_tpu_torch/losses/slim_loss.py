@@ -100,8 +100,7 @@ def nearest_point_loss(cfg: KnnLossCfg, bev_extent, warped, nearest_dist_sqr,
     return loss
 
 
-def flow_knn_multi(cloud_a, valid_a, cloud_b, valid_b, flows: dict,
-                   plain: bool = False):
+def flow_knn_multi(cloud_a, valid_a, cloud_b, valid_b, flows: dict):
     """ONE 1-NN call for several flow variants of the same cloud pair: the
     warped clouds concatenate along the point axis. Returns {key: (warped
     [B, N, 3], dist_sqr [B, N])}."""
@@ -110,18 +109,16 @@ def flow_knn_multi(cloud_a, valid_a, cloud_b, valid_b, flows: dict,
     warped = {k: cloud_a[..., :3] + flows[k][..., :3] for k in keys}
     q = torch.cat([warped[k] for k in keys], dim=1)
     va = torch.cat([valid_a] * len(keys), dim=1)
-    d_all = nn_1_sorted_diff(q, cloud_b[..., :3], va, valid_b, KNN_MARGIN_M,
-                             plain)
+    d_all = nn_1_sorted_diff(q, cloud_b[..., :3], va, valid_b, KNN_MARGIN_M)
     d_all = torch.where(va, d_all, 0.0)
     return {k: (warped[k], d_all[:, i * n:(i + 1) * n])
             for i, k in enumerate(keys)}
 
 
-def flow_knn(cloud_a, valid_a, cloud_b, valid_b, flow_a_to_b,
-             plain: bool = False):
+def flow_knn(cloud_a, valid_a, cloud_b, valid_b, flow_a_to_b):
     """Warp a by flow, 1-NN into b: (warped [B, N, 3], dist_sqr [B, N])."""
     return flow_knn_multi(cloud_a, valid_a, cloud_b, valid_b,
-                          {"flow": flow_a_to_b}, plain)["flow"]
+                          {"flow": flow_a_to_b})["flow"]
 
 
 def knn_flow_types(cfg: SlimLossCfg) -> set:
@@ -140,15 +137,14 @@ def knn_flow_types(cfg: SlimLossCfg) -> set:
     return types
 
 
-def batched_knn_for_iterations(preds, pca, va, pcb, vb, cfg: SlimLossCfg,
-                               plain: bool = False):
+def batched_knn_for_iterations(preds, pca, va, pcb, vb, cfg: SlimLossCfg):
     """ONE 1-NN call for ALL RAFT iterations x flow types of one direction.
     Returns one {type: {loss, dist_sqr}} dict per iteration."""
     types = sorted(knn_flow_types(cfg))
     keys = [f"{it:02d}/{t}" for it in range(len(preds)) for t in types]
     flows = {f"{it:02d}/{t}": getattr(pred, f"{t}_flow")
              for it, pred in enumerate(preds) for t in types}
-    res_multi = flow_knn_multi(pca, va, pcb, vb, flows, plain)
+    res_multi = flow_knn_multi(pca, va, pcb, vb, flows)
     b, n = va.shape
     s = len(keys)
     w_stack = torch.stack([res_multi[k][0] for k in keys], dim=1)
@@ -206,8 +202,7 @@ def _masked_mean(x, mask, group=None):
 def slim_loss_single_iteration(pred_fw: SlimPrediction, pred_bw: SlimPrediction,
                                pc1, valid1, pc2, valid2, movavg: MovAvgState,
                                cfg: SlimLossCfg, update_threshold: bool = True,
-                               knn_fw=None, knn_bw=None, plain: bool = False,
-                               group=None):
+                               knn_fw=None, knn_bw=None, group=None):
     """One RAFT iteration's loss. Returns (loss scalar, new movavg state,
     metrics dict). knn_fw / knn_bw: precomputed {type: {loss, dist_sqr}}
     from `batched_knn_for_iterations`; when None the searches run here.
@@ -248,8 +243,7 @@ def slim_loss_single_iteration(pred_fw: SlimPrediction, pred_bw: SlimPrediction,
 
     def knn_all(pred, pca, va, pcb, vb):
         res_multi = flow_knn_multi(
-            pca, va, pcb, vb, {t: getattr(pred, f"{t}_flow") for t in sorted(types)},
-            plain)
+            pca, va, pcb, vb, {t: getattr(pred, f"{t}_flow") for t in sorted(types)})
         return {t: {"loss": nearest_point_loss(cfg.knn, cfg.bev_extent, w, d, va),
                     "dist_sqr": d}
                 for t, (w, d) in res_multi.items()}
@@ -298,8 +292,7 @@ def slim_loss_single_iteration(pred_fw: SlimPrediction, pred_bw: SlimPrediction,
 
     if cfg.use_static_aggr_flow_for_aggr_flow and update_threshold:
         movavg = movavg_update(movavg, *threshold_update_inputs(
-            pred_fw, pred_bw, knn_fw, knn_bw, valid1, valid2), plain=plain,
-            group=group)
+            pred_fw, pred_bw, knn_fw, knn_bw, valid1, valid2), group=group)
 
     metrics["total_loss"] = total
     return total, movavg, metrics

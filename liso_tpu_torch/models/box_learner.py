@@ -53,8 +53,7 @@ class BoxLearner(nn.Module):
         self._require_centerpoint()
         return self.model.pfn.point_feats(points, valid, prepared=prepared)
 
-    def forward(self, points, valid, prepared=None, pillar_image=None,
-                plain: bool = False):
+    def forward(self, points, valid, prepared=None, pillar_image=None):
         """-> (flat Boxes, decoded maps, activated maps, aux). TransFusion's
         aux also holds the dense heatmap logits (`heatmap`), every decoder
         layer's raw maps (`layer_maps`) and the peaks' scores
@@ -63,13 +62,12 @@ class BoxLearner(nn.Module):
         if self.network == "transfusion":
             if pillar_image is not None:
                 self._require_centerpoint()
-            raw_maps, occ, tf_aux = self.model(points, valid, plain)
+            raw_maps, occ, tf_aux = self.model(points, valid)
             aux["heatmap"] = tf_aux["dense_heatmap"]
             aux["layer_maps"] = tf_aux["layer_maps"]
             aux["query_heatmap_score"] = tf_aux["query_heatmap_score"]
         else:
-            raw_maps, occ = self.model(points, valid, prepared, pillar_image,
-                                       plain)
+            raw_maps, occ = self.model(points, valid, prepared, pillar_image)
         aux["occupancy"] = occ
         activated = apply_activations(raw_maps, self.box_cfg)
         decoded = decode_box_maps(activated, self.box_cfg, self.bev)

@@ -160,12 +160,11 @@ class CenterPointNet(nn.Module):
         """BEV grid -> prediction grid factor."""
         return 4 if self.use_baseline_parameters else 8
 
-    def forward(self, points, valid, prepared=None, pillar_image=None,
-                plain: bool = False):
+    def forward(self, points, valid, prepared=None, pillar_image=None):
         if pillar_image is not None:
             img, occ = pillar_image
         else:
-            img, occ = self.pfn(points, valid, prepared, plain)
+            img, occ = self.pfn(points, valid, prepared)
         x = self.rpn(img.permute(0, 3, 1, 2))
         maps = self.sep_head(self.shared_conv(x))
         return {k: v.permute(0, 2, 3, 1) for k, v in maps.items()}, occ

@@ -6,6 +6,10 @@ pad goes on the right (a 3x3 stride-2 conv on an even input pads (0, 1), a
 the output. flax's `dtype=` casts inputs and kernels per op and keeps the
 parameters and norm statistics in fp32; `Conv`, `GroupNorm` and
 `BatchNorm` here do the same with `dtype`.
+
+An eval `BatchNorm` + ReLU without autograd is one launch of the
+`bn_relu_eval` kernel on the card; CPU tensors and every call inside
+`kernels.plain_versions()` take its composition, `bn_relu_eval_plain`.
 """
 from __future__ import annotations
 
@@ -137,9 +141,10 @@ def bn_relu_eval(x, running_mean, running_var, weight, bias, eps,
     `kernels/bn_relu_eval.cu`, which reads x once and writes the result
     once, bitwise the plain version (bf16 or fp32 in and out; the norm's
     statistics and affine in fp32), in x's layout (contiguous or, for NCHW,
-    channels_last). CPU tensors take the plain version.
+    channels_last). CPU tensors take the plain version, and so does every
+    call inside `kernels.plain_versions()` (`kernels.use_plain`).
     No autograd: callers run it without a gradient."""
-    if x.device.type == "cpu":
+    if kernels.use_plain(x):
         return bn_relu_eval_plain(x, running_mean, running_var, weight, bias,
                                   eps, channel_dim, dtype)
     out_dtype = dtype or torch.float32

@@ -129,14 +129,12 @@ class PillarEncoder(nn.Module):
         x = self.pfn_linear(prepared.feats)
         return self.pfn_bn.forward_relu(x, prepared.in_pillar), prepared
 
-    def forward(self, points, valid, prepared=None, plain: bool = False):
+    def forward(self, points, valid, prepared=None):
         h, w = self.bev.grid_size
         x, prepared = self.point_feats(points, valid, prepared=prepared)
         if self.scatter_dtype is not None:
             x = x.to(self.scatter_dtype)
-        g, occ = grid_scatter_max_occ(
-            x, prepared.cell, self.bev.num_cells, plain=plain
-        )
+        g, occ = grid_scatter_max_occ(x, prepared.cell, self.bev.num_cells)
         b = x.shape[0]
         return g.reshape(b, h, w, self.num_channels), occ.reshape(b, h, w, 1)
 
@@ -149,7 +147,7 @@ def pillar_coords(points: torch.Tensor, valid: torch.Tensor, bev: BevSetup):
 
 
 def fused_scatter_images(xs, prepared: PreparedPillars, bev: BevSetup,
-                         dtype=None, plain: bool = False):
+                         dtype=None):
     """Scatter several encoders' per-point features (same cloud, same prep)
     into BEV images with ONE kernel launch. xs: list of [B, N, Ci]. Returns
     (list of [B, H, W, Ci] images, occupancy [B, H, W, 1])."""
@@ -158,7 +156,7 @@ def fused_scatter_images(xs, prepared: PreparedPillars, bev: BevSetup,
     xcat = torch.cat(xs, dim=-1)
     if dtype is not None:
         xcat = xcat.to(dtype)
-    g, occ = grid_scatter_max_occ(xcat, prepared.cell, bev.num_cells, plain=plain)
+    g, occ = grid_scatter_max_occ(xcat, prepared.cell, bev.num_cells)
     imgs = []
     off = 0
     for x in xs:

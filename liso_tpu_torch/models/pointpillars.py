@@ -134,8 +134,8 @@ class PointPillarsNet(nn.Module):
         self.reg_head = Conv(128, a * 7, 1, **kw)
         self.dir_head = Conv(128, a * 2, 1, **kw)
 
-    def forward(self, points, valid, plain: bool = False):
-        img, occ = self.pfn(points, valid, plain=plain)
+    def forward(self, points, valid):
+        img, occ = self.pfn(points, valid)
         feat = self.reduce(self.second_fpn(img.permute(0, 3, 1, 2)))
         a = self.anchor_cfg.num_anchors
         heads = [getattr(self, n)(feat).float().permute(0, 2, 3, 1)

@@ -159,8 +159,8 @@ class PointRCNNNet(nn.Module):
         self.prop_head = nn.Linear(128, 8, **kw)
         self._refine = RoIRefine(cfg, 128, **kw)
 
-    def forward(self, points, valid, plain: bool = False):
-        img, occ = self.pfn(points, valid, plain=plain)
+    def forward(self, points, valid):
+        img, occ = self.pfn(points, valid)
         feat = self.reduce(self.backbone(img.permute(0, 3, 1, 2)))
         b, c, fh, fw = feat.shape
 

@@ -427,14 +427,12 @@ class RAFT(nn.Module):
             fmap, ctx = self.fnet(x), self.cnet(x)
         return fmap.permute(0, 2, 3, 1), ctx.permute(0, 2, 3, 1)
 
-    def forward(self, img0, img1, upsample_all: bool = True,
-                plain: bool = False):
+    def forward(self, img0, img1, upsample_all: bool = True):
         fmap0, cn0 = self.encode(img0)
         fmap1 = self.encode(img1)[0]
-        return self.flow_from_features(fmap0, cn0, fmap1, upsample_all, plain)
+        return self.flow_from_features(fmap0, cn0, fmap1, upsample_all)
 
-    def flow_from_features(self, fmap0, cn, fmap1, upsample_all: bool = True,
-                           plain: bool = False):
+    def flow_from_features(self, fmap0, cn, fmap1, upsample_all: bool = True):
         b, h, w, c = fmap0.shape
         f1cat, lvls = pool_f1_levels(fmap1, self.corr_levels)
         f0_flat = fmap0.reshape(b, h * w, c)
@@ -461,7 +459,7 @@ class RAFT(nn.Module):
             if wlog is not None:
                 wlog = wlog.detach()
             corr = corr_window_features(
-                f0_flat, f1cat, coords0 + flow, lvls, self.corr_radius, plain
+                f0_flat, f1cat, coords0 + flow, lvls, self.corr_radius
             )
             net, dflow, dlogits, dw = self.update_block(
                 net, inp, corr, flow, logits, wlog

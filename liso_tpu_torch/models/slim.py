@@ -78,15 +78,15 @@ def _fold(importance, bias, update_weight, count, hist):
 
 
 def movavg_update(state: MovAvgState, epes_stat, epes_dyn, dynamicness,
-                  valid, plain: bool = False, group=None) -> MovAvgState:
+                  valid, group=None) -> MovAvgState:
     """One update from flat [M] inputs: improvements = epe_static -
     epe_dynamic of the valid entries, summed into dynamicness bins, EMA'd
     into the importance."""
     return movavg_update_batched(state, epes_stat[None], epes_dyn[None],
-                                 dynamicness[None], valid[None], plain, group)
+                                 dynamicness[None], valid[None], group)
 
 
-def _histograms(improvements, bins, res, plain=False):
+def _histograms(improvements, bins, res):
     """[I, M] values and bins (res = drop bucket) -> [I, res] per-row bin
     sums: a stable sort of each row by bin, then one K3 launch over all
     rows, with the bins padded to a multiple of 2048 and the drop bucket
@@ -96,12 +96,11 @@ def _histograms(improvements, bins, res, plain=False):
     bins_s, order = torch.sort(bins, dim=-1, stable=True)
     vals_s = torch.gather(improvements, -1, order)
     bins_s = torch.where(bins_s >= res, torch.iinfo(torch.int32).max, bins_s)
-    return grid_reduce_add_c1(vals_s, bins_s, res_pad, plain)[:, :res]
+    return grid_reduce_add_c1(vals_s, bins_s, res_pad)[:, :res]
 
 
 def movavg_update_batched(state: MovAvgState, epes_stat, epes_dyn,
-                          dynamicness, valid, plain: bool = False,
-                          group=None) -> MovAvgState:
+                          dynamicness, valid, group=None) -> MovAvgState:
     """The sequence of `movavg_update` calls over the rows of [I, M] inputs
     (one row per RAFT iteration) with ONE batched histogram pass; the EMA
     folds row by row afterwards. With a process group the [I, res]
@@ -110,8 +109,7 @@ def movavg_update_batched(state: MovAvgState, epes_stat, epes_dyn,
     res = state.importance.shape[0]
     n_iter = epes_stat.shape[0]
     improvements = torch.where(valid, epes_stat - epes_dyn, 0.0)
-    hists = _histograms(improvements, _bins(dynamicness, valid, res), res,
-                        plain)
+    hists = _histograms(improvements, _bins(dynamicness, valid, res), res)
     counts = valid.sum(-1).float()
     if group is not None:
         summed = batch_total(torch.cat([hists, counts[:, None]], 1), group)
@@ -132,8 +130,7 @@ class SlimModel(nn.Module):
     logit when `predict_weight_for_static_aggregation` is set). Both
     directions share one RAFT. In train mode (`self.train()`) the pillar
     encoder's batch norm normalises with the batch's statistics and updates
-    its running ones, once per frame. `plain=True` runs the plain PyTorch
-    versions of the kernels on the card."""
+    its running ones, once per frame."""
 
     def __init__(self, bev: BevSetup, num_iters: int = 6, corr_levels: int = 4,
                  corr_radius: int = 3, pillar_channels: int = 64,
@@ -161,8 +158,7 @@ class SlimModel(nn.Module):
             device=device,
         )
 
-    def encode_frame(self, pcl, valid, prepared=None, pillar_image=None,
-                     plain: bool = False):
+    def encode_frame(self, pcl, valid, prepared=None, pillar_image=None):
         """Encode ONE frame: (fmap, cnet, occ [B, H, W]). `prepared` skips
         the shared pillar prep; `pillar_image` = (img, occ) skips the
         pillar encoder (the fused step scatters both networks' features in
@@ -170,7 +166,7 @@ class SlimModel(nn.Module):
         if pillar_image is not None:
             img, occ = pillar_image
         else:
-            img, occ = self.pillar_encoder(pcl, valid, prepared, plain)
+            img, occ = self.pillar_encoder(pcl, valid, prepared)
         fmap, cn = self.raft.encode(img)
         return fmap, cn, occ[..., 0]
 
@@ -178,19 +174,14 @@ class SlimModel(nn.Module):
         """Pre-scatter per-point PFN features (x [B, N, C], prepared)."""
         return self.pillar_encoder.point_feats(pcl, valid, prepared=prepared)
 
-    def flow_from_features(self, fmap0, cn0, fmap1, upsample_all=False,
-                           plain: bool = False):
+    def flow_from_features(self, fmap0, cn0, fmap1, upsample_all=False):
         """Flow frame0 -> frame1 from cached features."""
-        return self.raft.flow_from_features(fmap0, cn0, fmap1, upsample_all,
-                                            plain)
+        return self.raft.flow_from_features(fmap0, cn0, fmap1, upsample_all)
 
     def forward(self, pcl_t0, valid_t0, pcl_t1, valid_t1,
-                backward: bool = True, upsample_all: bool = True,
-                plain: bool = False):
-        img0, occ0 = self.pillar_encoder(pcl_t0, valid_t0, plain=plain)
-        img1, occ1 = self.pillar_encoder(pcl_t1, valid_t1, plain=plain)
-        outputs_fw = self.raft(img0, img1, upsample_all, plain)
-        outputs_bw = (
-            self.raft(img1, img0, upsample_all, plain) if backward else None
-        )
+                backward: bool = True, upsample_all: bool = True):
+        img0, occ0 = self.pillar_encoder(pcl_t0, valid_t0)
+        img1, occ1 = self.pillar_encoder(pcl_t1, valid_t1)
+        outputs_fw = self.raft(img0, img1, upsample_all)
+        outputs_bw = self.raft(img1, img0, upsample_all) if backward else None
         return outputs_fw, outputs_bw, occ0[..., 0], occ1[..., 0]

@@ -172,8 +172,8 @@ class TransFusionNet(nn.Module):
             setattr(self, f"pred_head{i}",
                     PredictionHead(d_model, head_channels, device=device))
 
-    def forward(self, points, valid, plain: bool = False):
-        img, occ = self.pfn(points, valid, plain=plain)
+    def forward(self, points, valid):
+        img, occ = self.pfn(points, valid)
         feat = self.reduce(self.backbone(img.permute(0, 3, 1, 2))).float()
         b, _, hh, ww = feat.shape
         dense_heatmap = self.heatmap_head(feat).permute(0, 2, 3, 1)

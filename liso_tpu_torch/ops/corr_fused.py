@@ -11,8 +11,10 @@ cotangent is scaled and rounded to bf16 per element, then df0 and df1 are
 formed from the windowed entries (`corr_window_bwd`). The forward launches
 the CUDA kernel `kernels/corr_window_fwd.cu` (K2) and the backward
 `kernels/corr_window_bwd.cu` (K5) for CUDA tensors; both run their plain
-PyTorch versions (`*_plain`) for CPU tensors, and on the card only when the
-caller passes `plain=True`.
+PyTorch versions (`*_plain`) where `kernels.use_plain` says: for CPU
+tensors, inside `kernels.plain_versions()`, or when the caller passes
+`plain=True`. The backward runs plain where its forward did, or inside a
+scope (`kernels.plain_versions`).
 """
 from __future__ import annotations
 
@@ -176,7 +178,7 @@ def _level_meta(levels: CorrLevels, *extra: int):
 
 
 def _fused_corr_window_fwd(f0, f1cat, coords_t, levels, radius, plain):
-    if plain or f0.device.type == "cpu":
+    if kernels.use_plain(f0, plain):
         return fused_corr_window_plain(f0, f1cat, coords_t, levels, radius)
     dev = f0.device
     if dev.type != "cuda" or f1cat.device != dev or coords_t.device != dev:
@@ -275,7 +277,7 @@ def corr_window_bwd(f0, f1cat, coords_t, g, levels: CorrLevels, radius: int,
     `corr_window_bwd_plain`. The HW pixels form the grid of f1cat's first
     level (`levels.logical[0]`), row-major: the kernel takes 2-D tiles of
     them."""
-    if plain or f0.device.type == "cpu":
+    if kernels.use_plain(f0, plain):
         return corr_window_bwd_plain(f0, f1cat, coords_t, g, levels, radius)
     dev = f0.device
     if any(t.device != dev for t in (f1cat, coords_t, g)) or dev.type != "cuda":
@@ -321,6 +323,7 @@ def corr_window_bwd(f0, f1cat, coords_t, g, levels: CorrLevels, radius: int,
 class _FusedCorrWindow(torch.autograd.Function):
     @staticmethod
     def forward(ctx, f0, f1cat, coords_t, levels, radius, plain):
+        plain = kernels.use_plain(f0, plain)
         out = _fused_corr_window_fwd(f0, f1cat, coords_t, levels, radius, plain)
         ctx.save_for_backward(f0, f1cat, coords_t)
         ctx.levels, ctx.radius, ctx.plain = levels, radius, plain
@@ -357,7 +360,6 @@ def corr_window_features(
     coords: torch.Tensor,  # [B, 2, H, W] (row, col), level-0 resolution
     levels: CorrLevels,
     radius: int = 3,
-    plain: bool = False,
 ) -> torch.Tensor:
     """Bilinear window features [B, L*(2r+1)^2, H, W] fp32 in the
     reference's tap order (column offset on the first window axis). The
@@ -367,7 +369,7 @@ def corr_window_features(
     win = 2 * radius + 1
     w1 = win + 1
     coords_t = coords.reshape(b, 2, hw)
-    taps = fused_corr_window(f0_flat, f1cat, coords_t, levels, radius, plain)
+    taps = fused_corr_window(f0_flat, f1cat, coords_t, levels, radius)
     outs = []
     for lvl in range(len(levels.shapes)):
         centers = coords_t / (2.0**lvl)

@@ -20,9 +20,10 @@ liso_tpu/ops/grid_scatter_pallas.py).
     `grid_reduce`.
 
 Each launches its CUDA kernel for CUDA tensors and runs its plain PyTorch
-version (`*_plain`) for CPU tensors; on the card the plain version runs
-only when the caller passes `plain=True` (tests and chip_smoke.py compare
-the two).
+version (`*_plain`) where `kernels.use_plain` says: for CPU tensors, inside
+`kernels.plain_versions()`, or when the caller passes `plain=True` (tests
+and chip_smoke.py compare the two). A backward runs plain where its
+forward did, or inside a scope (`kernels.plain_versions`).
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ def grid_scatter_max_occ_plain(
 
 
 def _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain):
-    if plain or feats.device.type == "cpu":
+    if kernels.use_plain(feats, plain):
         return grid_scatter_max_occ_plain(feats, cells, num_cells)
     _check_cuda(feats, cells)
     if feats.dtype not in (torch.float32, torch.bfloat16):
@@ -91,6 +92,7 @@ def _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain):
 class _GridScatterMaxOcc(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, cells, num_cells, plain):
+        plain = kernels.use_plain(feats, plain)
         grid, occ = _grid_scatter_max_occ_fwd(feats, cells, num_cells, plain)
         ctx.save_for_backward(feats, cells, grid)
         ctx.plain = plain
@@ -136,7 +138,7 @@ def scatter_max_vjp(feats: torch.Tensor, cells: torch.Tensor,
                     plain: bool = False):
     """The scatter-max VJP in one kernel launch; bitwise the same as
     `scatter_max_vjp_plain` (same contract)."""
-    if plain or feats.device.type == "cpu":
+    if kernels.use_plain(feats, plain):
         return scatter_max_vjp_plain(feats, cells, grid, g_grid)
     _check_cuda(feats, cells, grid, g_grid)
     if feats.dtype not in (torch.float32, torch.bfloat16) or any(
@@ -183,7 +185,7 @@ def grid_gather_plain(grid: torch.Tensor, cells: torch.Tensor):
 
 
 def _grid_gather_fwd(grid, cells, plain):
-    if plain or grid.device.type == "cpu":
+    if kernels.use_plain(grid, plain):
         return grid_gather_plain(grid, cells)
     _check_cuda(grid, cells)
     if grid.dtype not in (torch.float32, torch.bfloat16):
@@ -209,6 +211,7 @@ def _grid_gather_fwd(grid, cells, plain):
 class _GridGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, grid, cells, plain):
+        plain = kernels.use_plain(grid, plain)
         ctx.save_for_backward(cells)
         ctx.num_cells, ctx.plain = grid.shape[1], plain
         return _grid_gather_fwd(grid, cells, plain)
@@ -260,7 +263,7 @@ def grid_reduce_add(g: torch.Tensor, cells: torch.Tensor, num_cells: int,
     points' order or, for a cell of more than 32 points, as strided partial
     sums added in a fixed order, and rounds once (the TPU kernel rounds to
     g's dtype after every 128-point chunk)."""
-    if plain or g.device.type == "cpu":
+    if kernels.use_plain(g, plain):
         return grid_reduce_add_plain(g, cells, num_cells)
     _check_cuda(g, cells)
     if g.dtype not in (torch.float32, torch.bfloat16):
@@ -294,7 +297,7 @@ def grid_reduce_add_c1(vals: torch.Tensor, bins: torch.Tensor, num_bins: int,
     """Per-bin sums of scalar values whose bins are ascending within each
     row (the drop bucket, int32 max, sorts last). Same contract as
     `grid_reduce_add_c1_plain`."""
-    if plain or vals.device.type == "cpu":
+    if kernels.use_plain(vals, plain):
         return grid_reduce_add_c1_plain(vals, bins, num_bins)
     _check_cuda(vals, bins)
     if vals.dim() != 2 or bins.shape != vals.shape:

@@ -3,10 +3,11 @@ liso_tpu/ops/knn_pallas.py).
 
 `nn_1_sorted` launches the CUDA kernel `kernels/knn_banded.cu` (K6) for
 CUDA tensors and runs its plain version, the exact brute force `nn_1` of
-ops/knn.py, for CPU tensors; on the card the plain version runs only when
-the caller passes `plain=True`. `nn_1_sorted_band_plain` is the function
-the kernel computes, exact 1-NN over each chunk's band of refs: the card
-checks hold the kernel to it on every query.
+ops/knn.py, where `kernels.use_plain` says: for CPU tensors, inside
+`kernels.plain_versions()`, or when the caller passes `plain=True`.
+`nn_1_sorted_band_plain` is the function the kernel computes, exact 1-NN
+over each chunk's band of refs: the card checks hold the kernel to it on
+every query.
 
 Approximation contract of the kernel (`knn_pallas.py:13-17`): both clouds
 are sorted ascending in x (x-major cell order qualifies); a chunk of 512
@@ -241,7 +242,7 @@ def nn_1_sorted(q, refs, q_valid, r_valid, margin: float = 8.0,
     one-element int64 tensor on the card, receives the count of (valid
     query, ref) pairs the kernel tested (a measurement; the plain version
     leaves it as it is)."""
-    if plain or q.device.type == "cpu":
+    if kernels.use_plain(q, plain):
         return nn_1_sorted_plain(q, refs, q_valid, r_valid)
     return _nn1_kernel(q, refs, q_valid, r_valid, margin, visited)
 
@@ -284,8 +285,8 @@ def contract_report(q, refs, q_valid, r_valid, margin, d, idx, d_exact,
 
 class _NN1SortedDiff(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, refs, q_valid, r_valid, margin, plain):
-        d, idx = nn_1_sorted(q.detach(), refs, q_valid, r_valid, margin, plain)
+    def forward(ctx, q, refs, q_valid, r_valid, margin):
+        d, idx = nn_1_sorted(q.detach(), refs, q_valid, r_valid, margin)
         ctx.save_for_backward(q, refs, idx, q_valid)
         ctx.mark_non_differentiable(idx)
         return d, idx
@@ -300,11 +301,10 @@ class _NN1SortedDiff(torch.autograd.Function):
         dq = torch.where(q_valid[..., None], dq, 0.0)
         if q.shape[-1] > 3:
             dq = torch.nn.functional.pad(dq, (0, q.shape[-1] - 3))
-        return dq, None, None, None, None, None
+        return dq, None, None, None, None
 
 
-def nn_1_sorted_diff(q, refs, q_valid, r_valid, margin: float = 8.0,
-                     plain: bool = False):
+def nn_1_sorted_diff(q, refs, q_valid, r_valid, margin: float = 8.0):
     """Differentiable 1-NN distance: sq_dist [B, Nq] with the neighbour
     held fixed (dd/dq = 2 (q - nn)); refs are data and get no cotangent."""
-    return _NN1SortedDiff.apply(q, refs, q_valid, r_valid, margin, plain)[0]
+    return _NN1SortedDiff.apply(q, refs, q_valid, r_valid, margin)[0]

@@ -5,10 +5,10 @@
 `build_models` builds the two models on the card unless the caller passes
 `device="cpu"`; without CUDA and without that request it raises. The
 forward functions run under `torch.inference_mode()` on the models' device.
-`plain=True` runs the plain PyTorch versions of the kernels on the card;
-only tests and chip_smoke.py pass it. The eval BatchNorm + ReLU kernel
-(`models/layers.bn_relu_eval`, bitwise its composition) runs either way:
-the norms take it in eval mode without autograd.
+`plain=True` runs each of them inside `kernels.plain_versions()`: every
+kernel's plain PyTorch version runs on the card, the eval BatchNorm + ReLU
+composition (`models/layers.bn_relu_eval`) included, and the flow stage
+is eager; only tests and chip_smoke.py pass it.
 
 On the card `fused_streaming` replays its flow stage (K2, the GRU
 iterations, the upsampling: about 800 launches at 6 iterations) as one
@@ -72,16 +72,18 @@ def fused_forward(slim: SlimModel, det: BoxLearner, pts0, valid0, pts1,
     """Flow frame0 -> frame1 (SLIM forward only, final iteration) and
     CenterPoint boxes on frame 0: (flow [B, H, W, 2] meters, boxes.pos
     [B, K, 3], boxes.probs [B, K, 1])."""
-    out_fw, _, _, _ = slim(pts0, valid0, pts1, valid1, backward=False,
-                           upsample_all=False, plain=plain)
-    boxes, _, _, _ = det(pts0, valid0, plain=plain)
+    with kernels.plain_versions(plain):
+        out_fw, _, _, _ = slim(pts0, valid0, pts1, valid1, backward=False,
+                               upsample_all=False)
+        boxes, _, _, _ = det(pts0, valid0)
     return out_fw[-1][..., 4:6], boxes.pos, boxes.probs
 
 
 @torch.inference_mode()
 def encode(slim: SlimModel, pts, valid, plain: bool = False):
     """(fmap, cnet) of one frame, the state `fused_streaming` carries."""
-    fmap, cn, _ = slim.encode_frame(pts, valid, plain=plain)
+    with kernels.plain_versions(plain):
+        fmap, cn, _ = slim.encode_frame(pts, valid)
     return fmap, cn
 
 
@@ -96,21 +98,20 @@ def fused_streaming(slim: SlimModel, det: BoxLearner, fmap_prev, cn_prev,
     `stream.encode`, `stream.flow` and `stream.detect`. On the card the
     flow stage is a CUDA graph (the module's docstring); the flow returned
     is the caller's own tensor either way."""
-    with trace.span("stream.pillars"):
-        prepared = prepare_pillar_inputs(pts, valid, slim.bev)
-        x_slim, _ = slim.pillar_point_feats(pts, valid, prepared=prepared)
-        x_det, _ = det.point_feats(pts, valid, prepared=prepared)
-        (img_s, img_d), occ = fused_scatter_images(
-            [x_slim, x_det], prepared, slim.bev, dtype=slim.compute_dtype,
-            plain=plain,
-        )
-    with trace.span("stream.encode"):
-        fmap, cn, _ = slim.encode_frame(pts, valid, pillar_image=(img_s, occ))
-    with trace.span("stream.flow"):
-        flow = _flow_stage(slim, fmap_prev, cn_prev, fmap, plain)
-    with trace.span("stream.detect"):
-        boxes, _, _, _ = det(pts, valid, pillar_image=(img_d, occ),
-                             plain=plain)
+    with kernels.plain_versions(plain):
+        with trace.span("stream.pillars"):
+            prepared = prepare_pillar_inputs(pts, valid, slim.bev)
+            x_slim, _ = slim.pillar_point_feats(pts, valid, prepared=prepared)
+            x_det, _ = det.point_feats(pts, valid, prepared=prepared)
+            (img_s, img_d), occ = fused_scatter_images(
+                [x_slim, x_det], prepared, slim.bev, dtype=slim.compute_dtype)
+        with trace.span("stream.encode"):
+            fmap, cn, _ = slim.encode_frame(pts, valid,
+                                            pillar_image=(img_s, occ))
+        with trace.span("stream.flow"):
+            flow = _flow_stage(slim, fmap_prev, cn_prev, fmap)
+        with trace.span("stream.detect"):
+            boxes, _, _, _ = det(pts, valid, pillar_image=(img_d, occ))
     return fmap, cn, flow, boxes.pos, boxes.probs
 
 
@@ -136,9 +137,8 @@ def flow_graph_key(slim: SlimModel, fmap_prev, cn_prev, fmap) -> tuple:
     )
 
 
-def _eager_flow(slim: SlimModel, fmap_prev, cn_prev, fmap, plain=False):
-    return slim.flow_from_features(fmap_prev, cn_prev, fmap,
-                                   plain=plain)[-1][..., 4:6]
+def _eager_flow(slim: SlimModel, fmap_prev, cn_prev, fmap):
+    return slim.flow_from_features(fmap_prev, cn_prev, fmap)[-1][..., 4:6]
 
 
 class _FlowGraph:
@@ -177,14 +177,15 @@ class _FlowGraph:
         return self.flow.clone()
 
 
-def _flow_stage(slim: SlimModel, fmap_prev, cn_prev, fmap, plain: bool):
+def _flow_stage(slim: SlimModel, fmap_prev, cn_prev, fmap):
     """`fused_streaming`'s flow [B, H, W, 2]: eager for CPU tensors and
-    `plain`; on the card replayed from the model's graph, captured first
-    when the model has none for these inputs' key. Counts
-    `stream.flow_graph.eager`, `.captures` and `.replays`."""
-    if plain or fmap.device.type != "cuda":
+    inside `kernels.plain_versions()`; on the card replayed from the
+    model's graph, captured first when the model has none for these
+    inputs' key. Counts `stream.flow_graph.eager`, `.captures` and
+    `.replays`."""
+    if kernels.use_plain(fmap) or fmap.device.type != "cuda":
         trace.count("stream.flow_graph.eager")
-        return _eager_flow(slim, fmap_prev, cn_prev, fmap, plain)
+        return _eager_flow(slim, fmap_prev, cn_prev, fmap)
     key = flow_graph_key(slim, fmap_prev, cn_prev, fmap)
     held = _flow_graphs.get(slim)
     if held is None or held[0] != key:

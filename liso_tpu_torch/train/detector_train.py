@@ -192,11 +192,10 @@ class DetectorTrainer(AdamWTrainState):
         self.confidence_threshold = confidence_threshold
         self._init_state(max_lr, total_steps, weight_decay, group)
 
-    def _loss(self, points, valid, target_boxes: Boxes, ignore_mask,
-              plain: bool):
+    def _loss(self, points, valid, target_boxes: Boxes, ignore_mask):
         """Train-mode forward and loss terms (batch-norm statistics move)."""
         self.model.train()
-        flat, decoded, activated, aux = self.model(points, valid, plain=plain)
+        flat, decoded, activated, aux = self.model(points, valid)
         if self.network == "transfusion":
             return self._transfusion_loss(flat, aux, target_boxes, ignore_mask)
         gt_maps = render_centermaps(target_boxes, self.bev,
@@ -236,27 +235,24 @@ class DetectorTrainer(AdamWTrainState):
     @fp32_precision()
     def train_step(self, points: torch.Tensor, valid: torch.Tensor,
                    target_boxes: Boxes,
-                   ignore_mask: Optional[torch.Tensor] = None,
-                   plain: bool = False) -> dict:
+                   ignore_mask: Optional[torch.Tensor] = None) -> dict:
         """One step in place. Returns the JAX train step's metrics (0-dim
         tensors): `loss/<term>` for each loss term and the total (centerpoint:
         probs, rot, dims, pos; transfusion: heatmap and hungarian_*), `lr`
         (the schedule at this step) and `grad_norm`. Spans: `det.loss`
         (the forward and the loss terms), then `_update`'s."""
         with trace.span("det.loss"):
-            losses = self._loss(points, valid, target_boxes, ignore_mask,
-                                plain)
+            losses = self._loss(points, valid, target_boxes, ignore_mask)
         return self._update(losses, losses["total"])
 
     @torch.no_grad()
     @fp32_precision()
-    def predict_step(self, points: torch.Tensor, valid: torch.Tensor,
-                     plain: bool = False) -> Boxes:
+    def predict_step(self, points: torch.Tensor, valid: torch.Tensor) -> Boxes:
         """Eval forward: decode every anchor cell, sigmoid the probs,
         confidence threshold, keep the `pre_max_boxes` most confident, and
         rotated NMS down to `post_max_boxes` per sample."""
         self.model.eval()
-        flat, _, _, _ = self.model(points, valid, plain=plain)
+        flat, _, _, _ = self.model(points, valid)
         probs = torch.sigmoid(flat.probs)
         flat = flat.replace(
             probs=probs,

@@ -70,6 +70,7 @@ from liso_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from liso_tpu_torch.utils.config import to_plain
 from liso_tpu_torch.utils.tb import TBFactory
 
 # what reading a missing or half-written DB file raises: the JAX loop
@@ -115,15 +116,6 @@ def _pad_frame_points(frame: Frame, n_max: int):
     pts, fresh = pad_to(frame.pcl, n_max)
     vals, _ = pad_to(frame.valid, n_max)
     return pts, vals.astype(bool) & fresh
-
-
-def _to_plain(cfg_node):
-    """Config tree -> plain dict for yaml dumps."""
-    if hasattr(cfg_node, "items"):
-        return {k: _to_plain(v) for k, v in cfg_node.items()}
-    if isinstance(cfg_node, (list, tuple)):
-        return [_to_plain(v) for v in cfg_node]
-    return cfg_node
 
 
 def db_digest(db: Dict[str, dict]) -> str:
@@ -281,7 +273,7 @@ class LisoSelfTraining:
         self.log_dir = Path(log_dir)
         self.tb = TBFactory(self.log_dir / "tb")
         self.tb("train").add_text(
-            "config", "```\n" + yaml.safe_dump(_to_plain(cfg)) + "\n```", 0)
+            "config", "```\n" + yaml.safe_dump(to_plain(cfg)) + "\n```", 0)
 
         tc = cfg.data.tracking_cfg
         self.mining_cfg_bootstrap = MiningCfg(
@@ -513,7 +505,7 @@ class LisoSelfTraining:
         # config and box statistics next to the DBs (tracking.py:1938-1950)
         out.mkdir(parents=True, exist_ok=True)
         with open(out / "tracking_cfg.yaml", "w") as f:
-            yaml.safe_dump(_to_plain(tc), f, sort_keys=False)
+            yaml.safe_dump(to_plain(tc), f, sort_keys=False)
         confs = np.concatenate(
             [np.asarray(v["raw_box"]["probs"]).reshape(-1)
              for v in mined.values() if len(v.get("track_id", ()))]

@@ -72,12 +72,12 @@ class PointPillarsTrainer(AdamWTrainState):
 
     @fp32_precision()
     def train_step(self, points: torch.Tensor, valid: torch.Tensor,
-                   target: Boxes, plain: bool = False) -> dict:
+                   target: Boxes) -> dict:
         """One step in place. Returns `loss/<term>` for cls, reg, dir (each
         the batch mean of the per-sample loss) and total, and `lr`."""
         with trace.span("det.loss"):
             self.model.train()
-            cls, reg, direction, _ = self.model(points, valid, plain=plain)
+            cls, reg, direction, _ = self.model(points, valid)
             b, h, w, a = cls.shape
             per_sample = pointpillars_loss(
                 cls.reshape(b, -1), reg.reshape(b, -1, 7),
@@ -90,13 +90,12 @@ class PointPillarsTrainer(AdamWTrainState):
 
     @torch.no_grad()
     @fp32_precision()
-    def predict_step(self, points: torch.Tensor, valid: torch.Tensor,
-                     plain: bool = False) -> Boxes:
+    def predict_step(self, points: torch.Tensor, valid: torch.Tensor) -> Boxes:
         """Every anchor's decoded box, sigmoid scores, the `pre_max_boxes`
         most confident (a stable sort: jax.lax.top_k's tie order), the
         confidence threshold, and rotated NMS to `post_max_boxes`."""
         self.model.eval()
-        cls, reg, direction, _ = self.model(points, valid, plain=plain)
+        cls, reg, direction, _ = self.model(points, valid)
         b, h, w, a = cls.shape
         boxes = decode_predictions(
             cls.reshape(b, -1), reg.reshape(b, -1, 7),

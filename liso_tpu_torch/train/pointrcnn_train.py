@@ -55,24 +55,23 @@ class PointRCNNTrainer(AdamWTrainState):
 
     @fp32_precision()
     def train_step(self, points: torch.Tensor, valid: torch.Tensor,
-                   target: Boxes, plain: bool = False) -> dict:
+                   target: Boxes) -> dict:
         """One step in place. Returns `loss/<term>` for seg, the two
         stages' Hungarian terms, rescore and total, and `lr`."""
         with trace.span("det.loss"):
             self.model.train()
-            out = self.model(points, valid, plain=plain)
+            out = self.model(points, valid)
             total, losses = pointrcnn_loss(out, points, valid, target,
                                            self.group)
         return self._update({**losses, "total": total}, total)
 
     @torch.no_grad()
     @fp32_precision()
-    def predict_step(self, points: torch.Tensor, valid: torch.Tensor,
-                     plain: bool = False) -> Boxes:
+    def predict_step(self, points: torch.Tensor, valid: torch.Tensor) -> Boxes:
         """The refined proposals, sigmoid scores, the confidence threshold,
         and rotated NMS to `post_max_boxes`."""
         self.model.eval()
-        boxes: Boxes = self.model(points, valid, plain=plain)["refined"]
+        boxes: Boxes = self.model(points, valid)["refined"]
         probs = torch.sigmoid(boxes.probs)
         boxes = boxes.replace(
             probs=probs,

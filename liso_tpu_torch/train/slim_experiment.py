@@ -38,21 +38,12 @@ from liso_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from liso_tpu_torch.utils.config import to_plain
 from liso_tpu_torch.utils.tb import TBFactory
 
 # the 3 unordered pairs over (t0, t1, t2); each exports fw + bw
 # (experiment.py:386-456)
 EXPORT_PAIRS = (("t0", "t1"), ("t0", "t2"), ("t1", "t2"))
-
-
-def _to_plain(cfg_node):
-    """Config tree -> plain dict for yaml dumps (a copy of
-    liso_tpu/train/liso_loop.py:_to_plain)."""
-    if hasattr(cfg_node, "items"):
-        return {k: _to_plain(v) for k, v in cfg_node.items()}
-    if isinstance(cfg_node, (list, tuple)):
-        return [_to_plain(v) for v in cfg_node]
-    return cfg_node
 
 
 def compute_moving_mask(
@@ -140,12 +131,11 @@ def _savez_compressed(path: Path, arrays: Dict[str, np.ndarray]) -> None:
         np.savez_compressed(f, **arrays)
 
 
-def export_sample(trainer: SlimTrainer, dataset: LidarDataset, idx: int,
-                  plain: bool = False) -> Dict[str, np.ndarray]:
+def export_sample(trainer: SlimTrainer, dataset: LidarDataset,
+                  idx: int) -> Dict[str, np.ndarray]:
     """One sample's flow export: for each of the 6 ordered pairs the
     final-iteration aggregated flow (xy) and dynamicness, averaged per BEV
-    cell, plus the static threshold and the BEV range. `plain=True` runs
-    the kernels' plain versions (the on-card check only)."""
+    cell, plus the static threshold and the BEV range."""
     bev = trainer.bev
     h, w = bev.grid_size
     dev = trainer.device
@@ -163,7 +153,7 @@ def export_sample(trainer: SlimTrainer, dataset: LidarDataset, idx: int,
             odom_t0_t1=torch.from_numpy(sp.odom_t0_t1)[None].to(dev).float(),
             odom_t1_t0=torch.from_numpy(sp.odom_t1_t0)[None].to(dev).float(),
         )
-        pred_fw, pred_bw = trainer.predict_step(fs, plain=plain)
+        pred_fw, pred_bw = trainer.predict_step(fs)
         for name, pred, pc in ((f"{a}_{b}", pred_fw, fs.pcl_t0),
                                (f"{b}_{a}", pred_bw, fs.pcl_t1)):
             cell, _, _ = point_cell_ids(pc.pcl[0, :, :2], bev, pc.valid[0])
@@ -191,7 +181,7 @@ class SlimExperiment:
         self.log_dir = Path(log_dir)
         self.tb = TBFactory(self.log_dir / "tb")
         self.tb("train").add_text(
-            "config", "```\n" + yaml.safe_dump(_to_plain(cfg)) + "\n```", 0
+            "config", "```\n" + yaml.safe_dump(to_plain(cfg)) + "\n```", 0
         )
         self.trainer = slim_trainer_from_cfg(cfg, bev, len(train_dataset),
                                              device=device)

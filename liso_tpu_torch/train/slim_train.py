@@ -256,7 +256,7 @@ class SlimTrainer:
         return batch._replace(pcl_t0=pc0, pcl_t1=pc1), (perm0, perm1)
 
     def _forward_and_loss(self, batch: FlowSample, train: bool,
-                          need_loss: bool = True, plain: bool = False):
+                          need_loss: bool = True):
         """Returns (loss, new movavg, metrics, (last pred_fw, last
         pred_bw)); in train mode the batch-norm running statistics move."""
         batch, _ = self._sort_batch(batch)
@@ -264,13 +264,13 @@ class SlimTrainer:
         p0, p1 = batch.pcl_t0, batch.pcl_t1
         with _train_span("slim.forward", train):
             out_fw, out_bw, occ0, occ1 = self.model(
-                p0.pcl, p0.valid, p1.pcl, p1.valid, plain=plain)
+                p0.pcl, p0.valid, p1.pcl, p1.valid)
         with _train_span("slim.loss", train):
             return self._decode_and_loss(batch, out_fw, out_bw, occ0, occ1,
-                                         train, need_loss, plain)
+                                         train, need_loss)
 
     def _decode_and_loss(self, batch, out_fw, out_bw, occ0, occ1, train,
-                         need_loss, plain):
+                         need_loss):
         p0, p1 = batch.pcl_t0, batch.pcl_t1
         rc0, _ = pillar_coords(p0.pcl, p0.valid, self.bev)
         rc1, _ = pillar_coords(p1.pcl, p1.valid, self.bev)
@@ -298,9 +298,9 @@ class SlimTrainer:
             return out_fw.new_zeros(()), self.movavg, {}, last_pred
 
         knn_fw_all = batched_knn_for_iterations(
-            preds_fw, p0.pcl, p0.valid, p1.pcl, p1.valid, self.lcfg, plain)
+            preds_fw, p0.pcl, p0.valid, p1.pcl, p1.valid, self.lcfg)
         knn_bw_all = batched_knn_for_iterations(
-            preds_bw, p1.pcl, p1.valid, p0.pcl, p0.valid, self.lcfg, plain)
+            preds_bw, p1.pcl, p1.valid, p0.pcl, p0.valid, self.lcfg)
         if train:
             # the queries handed to the two 1-NN searches: every iteration
             # and flow type of each direction's padded cloud
@@ -317,8 +317,7 @@ class SlimTrainer:
             it_loss, movavg, it_metrics = slim_loss_single_iteration(
                 preds_fw[it], preds_bw[it], p0.pcl, p0.valid, p1.pcl, p1.valid,
                 movavg, self.lcfg, update_threshold=False,
-                knn_fw=knn_fw_all[it], knn_bw=knn_bw_all[it], plain=plain,
-                group=self.group,
+                knn_fw=knn_fw_all[it], knn_bw=knn_bw_all[it], group=self.group,
             )
             if do_thresh:
                 upd_inputs.append(threshold_update_inputs(
@@ -331,12 +330,12 @@ class SlimTrainer:
             # every iteration's histogram in ONE sort + K3 pass; the EMA
             # folds sequentially
             movavg = movavg_update_batched(
-                movavg, *(torch.stack(a) for a in zip(*upd_inputs)), plain=plain,
+                movavg, *(torch.stack(a) for a in zip(*upd_inputs)),
                 group=self.group)
         return total, movavg, metrics, last_pred
 
     # ------------------------------------------------------------------
-    def train_step(self, batch: FlowSample, plain: bool = False) -> dict:
+    def train_step(self, batch: FlowSample) -> dict:
         """One step in place. Returns the JAX train step's metrics (0-dim
         tensors): the last iteration's loss terms, `loss`, `grad_norm` (of
         the gradient before clipping) and `lr` (the schedule at this step;
@@ -355,7 +354,7 @@ class SlimTrainer:
             params = list(self.params.values())
             with trace.span("slim.loss_and_grads"):
                 loss, movavg, metrics, grads = self._loss_and_grads(
-                    params, batch, plain)
+                    params, batch)
                 if self.group is not None:
                     grads = all_sum_(grads, self.group)
                     metrics = total_metrics({**metrics, "loss": loss},
@@ -372,7 +371,7 @@ class SlimTrainer:
                         [loss.detach(), g_norm, n_points.float()]).tolist()
                     trace.count("slim.points", int(npts))
                     if not (math.isfinite(lv) and math.isfinite(gv)):
-                        self._raise_anomaly(params, batch, plain, loss, g_norm)
+                        self._raise_anomaly(params, batch, loss, g_norm)
                 if self.grad_clip_norm > 0:
                     grads = clip_by_global_norm(grads, g_norm,
                                                 self.grad_clip_norm)
@@ -391,18 +390,18 @@ class SlimTrainer:
         self.movavg = movavg
         return metrics
 
-    def _loss_and_grads(self, params, batch: FlowSample, plain: bool):
+    def _loss_and_grads(self, params, batch: FlowSample):
         for p in params:
             p.grad = None
         loss, movavg, metrics, _ = self._forward_and_loss(
-            batch, train=True, plain=plain)
+            batch, train=True)
         with trace.span("slim.backward"):
             loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         return loss, movavg, metrics, grads
 
-    def _raise_anomaly(self, params, batch, plain, loss, g_norm):
+    def _raise_anomaly(self, params, batch, loss, g_norm):
         """The step's loss or gradient is not finite: re-run the batch
         under autograd's anomaly mode, which names the backward op that
         first gave a non-finite value, and raise. No update is applied."""
@@ -410,19 +409,19 @@ class SlimTrainer:
                f"grad norm {float(g_norm)}")
         try:
             with torch.autograd.detect_anomaly():
-                self._loss_and_grads(params, batch, plain)
+                self._loss_and_grads(params, batch)
         except RuntimeError as e:
             raise FloatingPointError(msg) from e
         raise FloatingPointError(msg + " (anomaly mode named no op)")
 
     @torch.no_grad()
     @fp32_precision()
-    def predict_step(self, batch: FlowSample, plain: bool = False):
+    def predict_step(self, batch: FlowSample):
         """Final-iteration predictions (pred_fw, pred_bw) with the per-point
         outputs restored to the caller's point order (the forward runs on
         cell-sorted points). Batch norm uses its running statistics."""
         _, _, _, (pred_fw, pred_bw) = self._forward_and_loss(
-            batch, train=False, need_loss=False, plain=plain)
+            batch, train=False, need_loss=False)
         _, (perm0, perm1) = self._sort_batch(batch)
 
         def unsort(pred, perm):

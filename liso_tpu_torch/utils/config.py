@@ -160,6 +160,15 @@ def parse_config(
     return cfg
 
 
+def to_plain(cfg_node):
+    """Config tree -> plain dicts and lists, for yaml dumps."""
+    if hasattr(cfg_node, "items"):
+        return {k: to_plain(v) for k, v in cfg_node.items()}
+    if isinstance(cfg_node, (list, tuple)):
+        return [to_plain(v) for v in cfg_node]
+    return cfg_node
+
+
 def config_to_yaml(cfg: Config) -> str:
     return yaml.safe_dump(cfg.to_dict(), sort_keys=False)
 

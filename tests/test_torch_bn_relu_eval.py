@@ -9,9 +9,9 @@ streaming step and `fused_forward` call it once for each of their 23 and
 
 Marked `cuda` (skips without an NVIDIA GPU): the kernel bitwise against
 the composition at the stream's shapes, ragged ones and special values; a
-streaming step's flow, boxes and probabilities bitwise with the kernel and
-with the composition; its launch count per streaming step and per train
-step. Run them on a GPU machine with
+streaming step's features, boxes and probabilities bitwise with the kernel
+and inside `kernels.plain_versions()`; its launch count per streaming step
+and per train step. Run them on a GPU machine with
     python -m pytest --noconftest tests/test_torch_bn_relu_eval.py -q
 """
 import pytest
@@ -256,7 +256,7 @@ def _models(device, grid=128):
 
 
 def _stream(slim, det, pts, valid):
-    """Three chained streaming steps: their (flow, pos, probs) and the
+    """Three chained streaming steps: their (fmap, cn, pos, probs) and the
     kernel's launches in each."""
     fmap, cn = serve.encode(slim, pts[0], valid[0])
     outs, launches = [], []
@@ -266,21 +266,26 @@ def _stream(slim, det, pts, valid):
             slim, det, fmap, cn, pts[t], valid[t])
         torch.cuda.synchronize()
         launches.append(kernels.launches["bn_relu_eval"] - before)
-        outs.append((flow, pos, probs))
+        outs.append((fmap, cn, pos, probs))
     return outs, launches
 
 
 @pytest.mark.cuda
-def test_streaming_step_bitwise_with_the_composition(card, monkeypatch):
+def test_streaming_step_bitwise_with_the_composition(card):
+    """Inside the scope every norm takes the composition, and K1 its plain
+    version, which is bitwise the kernel: the features and the boxes match
+    bitwise. The flow is not compared: K2 runs plain there too, and the
+    flow stage has no norm and reads only the features compared.
+    test_torch_serve_graph.py::test_graph_equals_eager_stage holds the
+    flow of a run with this kernel bitwise to the eager stage's."""
     slim, det, pts, valid = _models(card)
     got, launches = _stream(slim, det, pts, valid)
     assert launches == [STREAM_NORMS] * (pts.shape[0] - 1)
-    with monkeypatch.context() as m:
-        m.setattr(layers, "bn_relu_eval", bn_relu_eval_plain)
+    with kernels.plain_versions():
         want, none = _stream(slim, det, pts, valid)
     assert none == [0] * (pts.shape[0] - 1)
     for g, w in zip(got, want):
-        for a, b, name in zip(g, w, ("flow", "pos", "probs")):
+        for a, b, name in zip(g, w, ("fmap", "cn", "pos", "probs")):
             assert torch.equal(a, b), name
 
 

@@ -491,7 +491,8 @@ def test_train_step_kernels_vs_plain(gen):
     for plain in (False, True):
         tr = SlimTrainer(BevSetup((40.0, 40.0), (64, 64)), **kw)
         kernels.reset_launches()
-        m = tr.train_step(batch, plain=plain)
+        with kernels.plain_versions(plain):
+            m = tr.train_step(batch)
         out.append(m)
         if not plain:
             # every kernel but K1-add and K4, which no path of the port
@@ -612,12 +613,13 @@ def test_detector_train_step_kernels_vs_plain(gen):
             tr = DetectorTrainer(BevSetup((40.0, 40.0), (64, 64)), max_lr=1e-3,
                                  total_steps=100, device="cuda")
             kernels.reset_launches()
-            out.append(tr.train_step(pts, valid, target, plain=plain))
-            want = {k: 0 for k in kernels.launches}
-            if not plain:
-                want.update(grid_scatter_max_occ=1, scatter_max_vjp=1)
-            assert kernels.launches == want
-            preds.append(tr.predict_step(pts, valid, plain=plain))
+            with kernels.plain_versions(plain):
+                out.append(tr.train_step(pts, valid, target))
+                want = {k: 0 for k in kernels.launches}
+                if not plain:
+                    want.update(grid_scatter_max_occ=1, scatter_max_vjp=1)
+                assert kernels.launches == want
+                preds.append(tr.predict_step(pts, valid))
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     for k in ("loss/total", "grad_norm"):

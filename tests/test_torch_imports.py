@@ -39,6 +39,28 @@ def test_no_jax_or_liso_tpu_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_no_plain_parameter_above_ops():
+    """The kernel-or-plain choice is `kernels.plain_versions()`, not an
+    argument threaded through the layers: only the `ops/` wrappers, the
+    kernel module and serve's entry points take a parameter `plain`."""
+    pkg = ROOT / "liso_tpu_torch"
+    allowed = (pkg / "ops", pkg / "kernels")
+    found = []
+    for path in sorted(pkg.rglob("*.py")):
+        if path == pkg / "serve.py" or any(path.is_relative_to(d)
+                                           for d in allowed):
+            continue
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+                a = node.args
+                names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+                if "plain" in names:
+                    found.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+    assert not found, f"functions taking `plain`: {found}"
+
+
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"

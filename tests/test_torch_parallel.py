@@ -184,7 +184,7 @@ def _local_det(net, state, batch):
         dt.load_state_dict(state)
         pts, valid, boxes = map_tree(lambda t: t[r:r + 1], batch)
         with torch.no_grad():
-            losses = dt._loss(pts, valid, boxes, None, False)
+            losses = dt._loss(pts, valid, boxes, None)
         shares.append({k: float(v) for k, v in losses.items()})
         if r == 0:
             stats0 = {k: v.clone() for k, v in dt.model.named_buffers()}

@@ -170,7 +170,7 @@ def test_logits_meet_1e4_with_fp32_corr_taps(reference, monkeypatch):
         {"params": p}, jnp.asarray(img0), jnp.asarray(img1)))(
             reference["jparams"]))
 
-    def fp32_window(f0_flat, fmap1, coords, num_levels, radius, plain):
+    def fp32_window(f0_flat, fmap1, coords, num_levels, radius):
         b, h, w, c = fmap1.shape
         pyramid = raft.build_corr_pyramid(f0_flat.reshape(b, h, w, c), fmap1,
                                           num_levels)

@@ -153,10 +153,6 @@ def card(request):
     return slim, det, pts, valid
 
 
-def _eager_stage(slim, fmap_prev, cn_prev, fmap, plain):
-    return serve._eager_flow(slim, fmap_prev, cn_prev, fmap, plain)
-
-
 def _steps(slim, det, pts, valid, n=GPU_STEPS):
     """n chained steps: each step's (flow, pos, probs), a copy of its flow
     made right after it, its K2 launches and its (fmap_prev, cn_prev)."""
@@ -176,7 +172,7 @@ def _steps(slim, det, pts, valid, n=GPU_STEPS):
 
 def _eager_steps(slim, det, pts, valid, monkeypatch, n=GPU_STEPS):
     with monkeypatch.context() as m:
-        m.setattr(serve, "_flow_stage", _eager_stage)
+        m.setattr(serve, "_flow_stage", serve._eager_flow)
         return _steps(slim, det, pts, valid, n)[0]
 
 
@@ -203,7 +199,7 @@ def test_graph_equals_eager_stage(card, monkeypatch):
         assert torch.equal(flow, c)
     # the eager path counts its launches as well
     with monkeypatch.context() as m:
-        m.setattr(serve, "_flow_stage", _eager_stage)
+        m.setattr(serve, "_flow_stage", serve._eager_flow)
         assert _steps(slim, det, pts, valid, 1)[2] == [GPU_ITERS]
     # each replayed step against the plain versions of the kernels on the
     # same inputs: a wrong K2 would be bitwise the same on both sides above
